@@ -1,0 +1,97 @@
+"""Data container, blocking and per-epoch statistics.
+
+Counterpart: evo_tpu/models/base.py (``Data``, ``pad_rows``, ``make_data``,
+the complete-data branch of ``block_gram``, ``StepStats``).  Every
+per-datapoint tensor is blocked [nb, B, ...]; ``BSC.em_step`` loops over the
+nb blocks.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from evo_tpu_torch._device import resolve_device
+
+
+@dataclasses.dataclass
+class Data:
+    """Observations and masks, blocked [nb, B, ...].
+
+    y:         [nb, B, D] observations, missing entries zeroed
+    x_infr:    [nb, B, D] bool — entries reliable for inference/learning
+    x:         [nb, B, D] bool — entries to keep as-is in a reconstruction
+    row_valid: [nb, B] bool — False for the padding rows
+    incomplete: whether any entry of x_infr is False
+    """
+
+    y: torch.Tensor
+    x_infr: torch.Tensor
+    x: torch.Tensor
+    row_valid: torch.Tensor
+    incomplete: bool = False
+
+    @property
+    def n_blocks(self) -> int:
+        return self.y.shape[0]
+
+    @property
+    def D(self) -> int:
+        return self.y.shape[-1]
+
+
+def pad_rows(N: int, multiple: int) -> int:
+    return (-N) % multiple
+
+
+def make_data(y: np.ndarray, x: Optional[np.ndarray] = None, n_blocks: int = 1,
+              pad_multiple: int = 1, dtype=torch.float32, device=None) -> Data:
+    """Build blocked ``Data`` from raw observations [N, D] (NumPy).
+
+    Missing entries of ``y`` are marked NaN; they are zeroed and tracked in
+    x_infr.  ``x`` defaults to x_infr.  Rows are padded to a multiple of
+    n_blocks * pad_multiple.  ``device`` None means the CUDA card."""
+    dev = resolve_device(device)
+    y = np.asarray(y)
+    N, D = y.shape
+    x_infr = ~np.isnan(y)
+    incomplete = bool((~x_infr).any())
+    y = np.where(x_infr, y, 0.0)
+    x = x_infr.copy() if x is None else np.asarray(x).astype(bool)
+    pad = pad_rows(N, n_blocks * pad_multiple)
+    if pad:
+        y = np.concatenate([y, np.zeros((pad, D), y.dtype)], axis=0)
+        x_infr = np.concatenate([x_infr, np.ones((pad, D), bool)], axis=0)
+        x = np.concatenate([x, np.ones((pad, D), bool)], axis=0)
+    row_valid = np.arange(N + pad) < N
+
+    def blk(a, dt=None):
+        t = torch.from_numpy(np.ascontiguousarray(a.reshape((n_blocks, -1) + a.shape[1:])))
+        return t.to(device=dev, dtype=dt)
+
+    return Data(y=blk(y, dtype), x_infr=blk(x_infr), x=blk(x),
+                row_valid=blk(row_valid), incomplete=incomplete)
+
+
+def block_gram(W: torch.Tensor, y_b: torch.Tensor):
+    """Complete-data lpj precomputation: (G = W^T W [H, H], Wty = y W [B, H],
+    y2 = ||y||^2 [B]).  True f32: the package turns TF32 off."""
+    return W.T @ W, y_b @ W, (y_b * y_b).sum(dim=-1)
+
+
+@dataclasses.dataclass
+class StepStats:
+    """Per-epoch diagnostics (0-dim tensors): the free energy F, the mean
+    number of new unique states and of substitutions per datapoint, the lpj
+    reset counters, and whether the sigma floor clamped the update."""
+
+    F: torch.Tensor
+    S_nunique: torch.Tensor
+    S_sub: torch.Tensor
+    n_reset_nan: torch.Tensor
+    n_reset_small: torch.Tensor
+    n_reset_inf: torch.Tensor
+    n_guard_sigma_floor: torch.Tensor

@@ -1,0 +1,293 @@
+"""Binary Sparse Coding trained with evolutionary E-steps (EBSC).
+
+Counterpart: evo_tpu/models/bsc.py.  Generative model:
+
+    s_h ~ Bernoulli(pi),  y = W s + N(0, sigma^2 I),  W in R^{D x H}
+
+The lpj of a state is evaluated in Gram form, pre1 (y2 - 2 s.Wty + s^T G s)
++ pil_bar |s| with G = W^T W, Wty = W^T y, y2 = ||y||^2 precomputed once
+per block, so that a state costs O(H^2) independent of D.
+
+An epoch (``em_step``) is a Python loop over the data blocks.  In each
+block the lpj of K^(n) and of each generation's children go through the
+``bsc_lpj`` kernel (which also emits the dedup keys), the merged states'
+sufficient statistics through the ``bsc_suffstat`` kernel, and the rest is
+plain PyTorch on the same device.  Complete data only in this version:
+incomplete data, reconstruction, packed states, permanent states and the
+other merge modes raise NotImplementedError.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from evo_tpu_torch._device import resolve_device
+from evo_tpu_torch.models.base import Data, StepStats, block_gram
+from evo_tpu_torch.ops.bsc_lpj import bsc_lpj
+from evo_tpu_torch.ops.bsc_suffstat import bsc_suffstat
+from evo_tpu_torch.ops.linalg import equilibrated_pd_inverse
+from evo_tpu_torch.ops.numerics import (
+    eps_lpj,
+    free_energy_from_lpj,
+    posterior_weights,
+    reset_lpj,
+    shifted_logsumexp,
+)
+from evo_tpu_torch.variational.config import EAConfig
+from evo_tpu_torch.variational.evolve import evolve_states_block
+from evo_tpu_torch.variational.state_init import EState, full_state_matrix
+from evo_tpu_torch.variational.varykn import vary_Kn
+
+PARAM_TOL = 1e-5  # reference noise_policy bounds (_models.py:47-52)
+
+
+@dataclasses.dataclass
+class BSCParams:
+    W: torch.Tensor  # [D, H]
+    pi: torch.Tensor  # scalar
+    sigma: torch.Tensor  # scalar
+    pies: torch.Tensor  # [H], per-unit pi_h, diagnostic only
+
+
+def _check_supported(data: Data, cfg: EAConfig = None, do_reconstruction=False):
+    if data.incomplete or do_reconstruction:
+        raise NotImplementedError(
+            "incomplete data and reconstruction are not ported yet")
+    if cfg is not None and (cfg.packed_states or cfg.allzero or cfg.background
+                            or not cfg.unification or cfg.swap_merge):
+        raise NotImplementedError(
+            "packed states, permanent states and the non-default merge "
+            "modes are not ported yet")
+
+
+@dataclasses.dataclass(frozen=True)
+class BSC:
+    """Static model configuration.  ``device`` None means the CUDA card."""
+
+    D: int
+    H: int
+    to_learn: Tuple[str, ...] = ("W", "pi", "sigma")
+    device: torch.device = None
+
+    def __post_init__(self):
+        object.__setattr__(self, "device", resolve_device(self.device))
+
+    # ------------------------------------------------------------------ init
+
+    def standard_init(self, data: Data, seed: int = 0, W_init=None, pi_init=None,
+                      sigma_init=None, y_host=None) -> BSCParams:
+        """Noisy-data-mean init (reference _models.py:206-283), drawn with
+        NumPy from ``seed`` exactly as evo_tpu draws it.  Pass ``y_host``
+        (the flat [N, D] host data) to skip the device-to-host copy."""
+        _check_supported(data)
+        if y_host is not None:
+            y = np.asarray(y_host).reshape(-1, self.D)
+        else:
+            y = data.y.reshape(-1, self.D).cpu().numpy()
+            y = y[data.row_valid.reshape(-1).cpu().numpy()]
+        y_mean = y.mean(0)
+        if sigma_init is None:
+            sigma_init = np.sqrt(((y - y_mean) ** 2).mean(0).sum() / self.D)
+            if not sigma_init > 0.0:
+                raise ValueError("the data have zero variance")
+        rng = np.random.default_rng(seed)
+        if isinstance(W_init, str) or W_init is None:
+            if W_init == "random_uniform":
+                W = rng.random((self.D, self.H))
+            elif W_init == "normal":
+                W = rng.normal(0, 5, (self.D, self.H))
+            elif W_init == "data_mean":
+                W = np.tile(y_mean[:, None], (1, self.H))
+            else:
+                W = y_mean[:, None] + rng.normal(scale=sigma_init / 4.0,
+                                                 size=(self.D, self.H))
+        else:
+            W = np.asarray(W_init)
+        pi = 1.0 / self.H if pi_init is None else pi_init
+        dt, dev = data.y.dtype, self.device
+        return BSCParams(
+            W=torch.as_tensor(np.asarray(W), dtype=dt, device=dev),
+            pi=torch.as_tensor(pi, dtype=dt, device=dev),
+            sigma=torch.as_tensor(sigma_init, dtype=dt, device=dev),
+            pies=torch.full((self.H,), pi, dtype=dt, device=dev),
+        )
+
+    # ----------------------------------------------------------- check/clamp
+
+    def check_params(self, p: BSCParams) -> BSCParams:
+        """Clamp to the reference noise policy: pi in [tol, 1-tol],
+        sigma >= tol, W unbounded."""
+        return BSCParams(
+            W=p.W,
+            pi=torch.clamp(p.pi, PARAM_TOL, 1.0 - PARAM_TOL),
+            sigma=torch.clamp(p.sigma, min=PARAM_TOL),
+            pies=torch.clamp(p.pies, PARAM_TOL, 1.0 - PARAM_TOL),
+        )
+
+    # ------------------------------------------------------------ generation
+
+    def generate_data(self, params: BSCParams, N: int,
+                      generator: torch.Generator) -> dict:
+        """s_h ~ Bernoulli(pi) (as p <= pi), y = W s + sigma * noise."""
+        dev, dt = params.W.device, params.W.dtype
+        s = torch.rand((N, self.H), generator=generator, device=dev) <= params.pi
+        y_mean = s.to(dt) @ params.W.T
+        noise = torch.randn(y_mean.shape, generator=generator, device=dev, dtype=dt)
+        return {"y": y_mean + params.sigma * noise, "s": s, "y_mean": y_mean}
+
+    # ------------------------------------------------------------ precompute
+
+    def _precompute(self, p: BSCParams, data: Data) -> dict:
+        """State-independent terms (reference bsc.py:100-125), complete data."""
+        dt = p.W.dtype
+        N = data.row_valid.sum().to(dt)
+        log2pis = torch.log(2 * math.pi * p.sigma * p.sigma)
+        vmask = data.row_valid[..., None].to(dt)
+        return dict(
+            pre1=-0.5 / (p.sigma * p.sigma),
+            pil_bar=torch.log(p.pi / (1.0 - p.pi)),
+            piH=p.pi * self.H,
+            ljc=self.H * torch.log(1.0 - p.pi) - self.D / 2 * log2pis,
+            N=N,
+            sum_d=N * self.D,
+            sum_d_y2=(data.y * data.y * vmask).sum(),
+        )
+
+    # ---------------------------------------------------------------- E-step
+
+    def _estep_block(self, generator, ss_b, G_b, Wty_b, y2_b, valid_b, pre,
+                     cfg: EAConfig):
+        """Evolutionary E-step of one block [B, ...]: lpj of the current
+        K^(n), children by ``evolve_states_block``, merge by ``vary_Kn``.
+        Returns (ss2, lpj2, n_uni [B], n_sub [B], reset counts [3])."""
+        emit = not cfg.exact
+
+        def lpj_block(states):
+            out = bsc_lpj(states, Wty_b, y2_b, G_b, pre["pre1"], pre["pil_bar"],
+                          emit_keys=emit)
+            lpj, keys = out if emit else (out, None)
+            lpj, counts = reset_lpj(lpj, valid=valid_b)
+            return lpj, keys, torch.stack(counts)
+
+        lpj_K, ss_keys, counts = lpj_block(ss_b)
+        if cfg.exact:
+            zeros = torch.zeros(ss_b.shape[0], dtype=torch.int64, device=ss_b.device)
+            return ss_b, lpj_K, zeros, zeros, counts
+        children, child_lpj, new_unique, _, aux = evolve_states_block(
+            ss_b, lpj_K, lpj_block, cfg, pre["piH"], generator, ss_dkeys=ss_keys)
+        ss2, lpj2, n_sub, _ = vary_Kn(ss_b, lpj_K, children, child_lpj, cfg.mprime)
+        return ss2, lpj2, new_unique.sum(dim=1), n_sub, counts + sum(aux)
+
+    # ---------------------------------------------------------------- epoch
+
+    def em_step(self, params: BSCParams, estate: EState, data: Data,
+                generator: torch.Generator, cfg: EAConfig,
+                do_reconstruction: bool = False):
+        """One EM epoch: E-step and M-step over all blocks.
+
+        Returns (new_params, new_estate, stats, None).  As in evo_tpu, F is
+        the free energy of the updated K^(n) under the old parameters, and
+        the M-step consumes the merged states and lpjs.  ``generator`` (on
+        the data's device) drives every random draw of the EA."""
+        _check_supported(data, cfg, do_reconstruction)
+        params = self.check_params(params)
+        pre = self._precompute(params, data)
+        dt, dev = params.W.dtype, params.W.device
+        W = params.W
+        Wp = torch.zeros((self.H, self.D), dtype=dt, device=dev)
+        Wq = torch.zeros((self.H, self.H), dtype=dt, device=dev)
+        pies = torch.zeros((self.H,), dtype=dt, device=dev)
+        sig = torch.zeros((), dtype=dt, device=dev)
+        Fsum = torch.zeros((), dtype=dt, device=dev)
+        nuni = torch.zeros((), dtype=torch.int64, device=dev)
+        nsub = torch.zeros((), dtype=torch.int64, device=dev)
+        resets = torch.zeros((3,), dtype=torch.int64, device=dev)
+        ss_all = torch.empty_like(estate.ss)
+        lpj_all = torch.empty_like(estate.lpj)
+        floor = 0.5 * eps_lpj(dt)
+
+        for i in range(data.n_blocks):
+            y_b, valid_b = data.y[i], data.row_valid[i]
+            G_b, Wty_b, y2_b = block_gram(W, y_b)
+            ss2, lpj2, n_uni, n_sub, counts = self._estep_block(
+                generator, estate.ss[i], G_b, Wty_b, y2_b, valid_b, pre, cfg)
+            vf = valid_b.to(dt)
+            Fsum += (shifted_logsumexp(lpj2) * vf).sum()
+            rs = posterior_weights(lpj2) * vf[:, None]
+            rho, s_abs, Wq_b = bsc_suffstat(ss2, rs)
+            Wp += rho.T @ y_b
+            Wq += Wq_b
+            pies += rho.sum(dim=0)
+            # sum_s r ||y - W s||^2 recovered from the lpj; reset-clamped
+            # values would poison it, so they are masked out (their
+            # responsibility is ~0 anyway)
+            resid2 = torch.clamp((lpj2 - pre["pil_bar"] * s_abs) / pre["pre1"], min=0.0)
+            sig += torch.where(lpj2 > floor, rs * resid2, 0.0).sum()
+            nuni += (n_uni * valid_b).sum()
+            nsub += (n_sub * valid_b).sum()
+            resets += counts
+            ss_all[i] = ss2
+            lpj_all[i] = lpj2
+
+        acc = dict(Wp=Wp, Wq=Wq, pies=pies, sigma=sig)
+        new_params, guard = self._m_step_finalize(params, acc, pre)
+        N = pre["N"]
+        stats = StepStats(
+            F=pre["ljc"] + Fsum / N, S_nunique=nuni / N, S_sub=nsub / N,
+            n_reset_nan=resets[0], n_reset_small=resets[1], n_reset_inf=resets[2],
+            n_guard_sigma_floor=guard)
+        return new_params, EState(ss=ss_all, lpj=lpj_all), stats, None
+
+    # ---------------------------------------------------------------- M-step
+
+    def _m_step_finalize(self, params: BSCParams, acc: dict, pre: dict):
+        """Closed-form updates from the epoch's accumulators (reference
+        bsc.py:225-277) with evo_tpu's guards: an equilibrated PD solve with
+        a relative ridge in f32 for W, and a floor on sigma at 1e-3 of the
+        data RMS.  Returns (params, sigma-floor flag)."""
+        N, D, H = pre["N"], self.D, self.H
+        new = dict(W=params.W, pi=params.pi, sigma=params.sigma, pies=params.pies)
+        if "W" in self.to_learn:
+            ridge = 0.0 if params.W.dtype == torch.float64 else 1e-6
+            new["W"] = (equilibrated_pd_inverse(acc["Wq"], rel_ridge=ridge) @ acc["Wp"]).T
+        if "pi" in self.to_learn:
+            new["pies"] = acc["pies"] / N
+            new["pi"] = new["pies"].sum() / H
+        guard = torch.zeros((), dtype=torch.int64, device=params.W.device)
+        if "sigma" in self.to_learn:
+            sigma_new = torch.sqrt(acc["sigma"] / N / D)
+            floor = 1e-3 * torch.sqrt(pre["sum_d_y2"] / torch.clamp(pre["sum_d"], min=1.0))
+            new["sigma"] = torch.maximum(sigma_new, floor)
+            guard = (sigma_new < floor).to(torch.int64)
+        return BSCParams(**new), guard
+
+    # ----------------------------------------------------------- free energy
+
+    def exact_free_energy(self, params: BSCParams, data: Data) -> torch.Tensor:
+        """Exact log-likelihood by enumerating all 2^H states (small H): the
+        correctness oracle."""
+        _check_supported(data)
+        params = self.check_params(params)
+        pre = self._precompute(params, data)
+        sm = torch.from_numpy(full_state_matrix(self.H).view(np.int8)).to(params.W.device)
+        Fsum = torch.zeros((), dtype=params.W.dtype, device=params.W.device)
+        for i in range(data.n_blocks):
+            y_b = data.y[i]
+            G_b, Wty_b, y2_b = block_gram(params.W, y_b)
+            states = sm.expand(y_b.shape[0], -1, -1).contiguous()
+            lpj, _ = reset_lpj(bsc_lpj(states, Wty_b, y2_b, G_b, pre["pre1"],
+                                       pre["pil_bar"]))
+            Fsum += (shifted_logsumexp(lpj) * data.row_valid[i].to(lpj.dtype)).sum()
+        return pre["ljc"] + Fsum / pre["N"]
+
+    def free_energy(self, params: BSCParams, estate: EState, data: Data) -> torch.Tensor:
+        """Truncated free energy from the stored lpj."""
+        _check_supported(data)
+        pre = self._precompute(self.check_params(params), data)
+        lpj = estate.lpj.reshape(-1, estate.lpj.shape[-1])
+        return free_energy_from_lpj(lpj, pre["ljc"], data.row_valid.reshape(-1))

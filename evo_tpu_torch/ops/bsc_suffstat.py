@@ -1,0 +1,64 @@
+"""BSC M-step sufficient statistics of the merged state sets.
+
+Counterpart: evo_tpu/ops/pallas_suffstat.py:bsc_suffstat_pallas (int8
+states); the CUDA kernel is csrc/bsc_suffstat.cu.  For states ss [B, S, H]
+with responsibilities rs [B, S]:
+
+    rho[b,h] = sum_s rs ss_h,   sabs[b,s] = sum_h ss_h,
+    Wq[h,k]  = sum_{b,s} rs ss_h ss_k
+
+``bsc_suffstat`` runs the kernel on a CUDA tensor and the plain version
+``bsc_suffstat_plain`` on a CPU tensor; nothing falls back from one to the
+other.  The kernel sums Wq in a fixed order, so it is the same from run to
+run.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from evo_tpu_torch.ops import _build
+
+ROWS_PER_CHUNK = 1024  # state rows per pass-1 chunk (whole datapoints)
+
+
+def bsc_suffstat_plain(ss, rs):
+    """Plain PyTorch version of the kernel: (rho [B, H], sabs [B, S],
+    Wq [H, H]), all f32."""
+    H = ss.shape[-1]
+    sf = ss.to(rs.dtype)
+    w = rs[..., None] * sf
+    return w.sum(dim=1), sf.sum(dim=-1), w.reshape(-1, H).T @ sf.reshape(-1, H)
+
+
+def bsc_suffstat(ss, rs):
+    """ss: int8 0/1 [B, S, H]; rs: f32 [B, S].  Returns (rho, sabs, Wq)."""
+    if ss.device.type == "cpu":
+        return bsc_suffstat_plain(ss, rs)
+    B, S, H = ss.shape
+    dev = ss.device
+    if ss.dtype != torch.int8:
+        raise TypeError(f"bsc_suffstat: states must be int8, got {ss.dtype}")
+    if rs.device != dev or rs.dtype != torch.float32 or tuple(rs.shape) != (B, S):
+        raise ValueError(f"bsc_suffstat: rs must be f32 {(B, S)} on {dev}, got "
+                         f"{rs.dtype} {tuple(rs.shape)} on {rs.device}")
+    if not (ss.is_contiguous() and rs.is_contiguous()):
+        raise ValueError("bsc_suffstat: inputs must be contiguous")
+    if B * S * H == 0:
+        raise ValueError(f"bsc_suffstat: empty shape {tuple(ss.shape)}")
+    chunk = max(1, ROWS_PER_CHUNK // S)
+    n_chunks = -(-B // chunk)
+    rho = torch.empty((B, H), dtype=torch.float32, device=dev)
+    sabs = torch.empty((B, S), dtype=torch.float32, device=dev)
+    wq = torch.empty((H, H), dtype=torch.float32, device=dev)
+    partial = torch.empty((n_chunks, H, H), dtype=torch.float32, device=dev)
+    fn = _build.entry("evo_bsc_suffstat")
+    err = fn(ss.data_ptr(), rs.data_ptr(), rho.data_ptr(), sabs.data_ptr(),
+             wq.data_ptr(), partial.data_ptr(), B, S, H, chunk,
+             torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "bsc_suffstat")
+    bsc_suffstat.launches += 1
+    return rho, sabs, wq
+
+
+bsc_suffstat.launches = 0
