@@ -11,12 +11,22 @@ Phases, one line each with its seconds:
                and the card's bound
   4. exact     one exact-mode epoch (H = 10, S = 2^10) through the kernels on
                the card against the same epoch on the CPU's plain path
-  5. main      the main path at full width (N = 102,400, D = H = 256, S = 64,
-               25 blocks, 10 parents x 1 child x 1 generation): 1 warm-up and
-               3 timed EM epochs, with the kernels' launch counts checked,
-               then one more epoch under torch.profiler: its kernel time,
-               idle share and heaviest kernels
-Then a JSON line with the kernels' numbers and, last, the result line.
+  5. main      the EBSC main path at full width (N = 102,400, D = H = 256,
+               S = 64, 25 blocks, 10 parents x 1 child x 1 generation): 1
+               warm-up and 3 timed EM epochs, with the kernels' launch counts
+               checked, then one more epoch under torch.profiler: its kernel
+               time, idle share and heaviest kernels
+  6. exact_sssc   one exact-mode ES3C epoch (H = 8, S = 2^8) on the card
+               against the same epoch on the CPU's plain path
+  7. sssc_fl   ES3C at the reference's feature-learning widths (bench.py:
+               233-243: N = 2048, D = 64, H = 100, S = 15, 5 parents x 2
+               children): 1 warm-up and 3 timed epochs, launch counts checked
+  8. sssc_primary  the repo's ES3C benchmark size (bench.py:181-191:
+               N = 65,536 in 16 blocks, D = 25, H = 32, S = 20, 10 parents x
+               1 child): the same, then one more epoch under torch.profiler
+The kernels phase also holds the two ES3C kernels against their plain
+versions at those paths' shapes.  Then a JSON line with the kernels'
+numbers and, last, the result line.
 
 Any failed check raises and the script exits non-zero; it also exits
 non-zero without a result when no CUDA card is present.  The whole run is
@@ -35,10 +45,12 @@ import time
 import numpy as np
 import torch
 
-from evo_tpu_torch import BSC, init_states, make_data
+from evo_tpu_torch import BSC, SSSC, SSSCParams, init_states, make_data
 from evo_tpu_torch.ops import _build
 from evo_tpu_torch.ops.bsc_lpj import bsc_lpj, bsc_lpj_plain, key_words
 from evo_tpu_torch.ops.bsc_suffstat import bsc_suffstat, bsc_suffstat_plain
+from evo_tpu_torch.ops.sssc_lpj import overflow_cap, sssc_lpj, sssc_lpj_plain
+from evo_tpu_torch.ops.sssc_suffstat import sssc_suffstat, sssc_suffstat_plain
 
 DEADLINE_S = 600
 DEVICE = "cuda"
@@ -54,6 +66,12 @@ PEAKS = {"NVIDIA H100 80GB HBM3": (67e12, 16.75e12, 3.35e12),
 N_BLOCKS, B, H, S, D = 25, 4096, 256, 64, 256
 N_PARENTS, N_CHILDREN, N_GENERATIONS = 10, 1, 1
 WARM_EPOCHS, TIMED_EPOCHS = 1, 3
+# bench.py's two ES3C configurations: its N = 65,536 benchmark
+# (bench.py:181-191) and the reference's feature-learning default
+# (bench.py:233-243, with slab noise in its data); each (n_blocks, B, D, H,
+# S, parents, children, slab noise)
+SSSC_PRIMARY = (16, 4096, 25, 32, 20, 10, 1, False)
+SSSC_FL = (1, 2048, 64, 100, 15, 5, 2, True)
 
 
 def _watchdog():
@@ -226,6 +244,160 @@ def check_kernels(device):
     return rows
 
 
+def sssc_inputs(Bk, K, Hk, gen, device):
+    """Inputs of the ES3C kernels at the ES3C paths' scale: states at the
+    EA's sparsity (2/H bits on) with unit 0 left out, plus
+      - at H <= 64, datapoints 0-31 with |s| from 1 up to H - 1 in slot 0
+        (dense states stay exact);
+      - at H > 64, datapoints 0-31 with 8 < |s| <= 16 in slot 0 (exact) and
+        32-35 with |s| > 16 (flagged: the overflow rule);
+      - the last datapoint's slot 0 the single unit 0, under a Psi whose
+        entry Psi[0, 0] = -1/(s2inv G[0, 0]) makes its M' singular (flagged,
+        lpj NaN).  Unit 0 is in no other state.
+    Returns the lpj's arguments (dict) and the unpoisoned Psi."""
+    Dk = 25 if Hk <= 64 else 64
+    ss = (torch.rand(Bk, K, Hk, generator=gen) < 2.0 / Hk).to(torch.int8)
+    ss[..., 0] = 0
+    sizes = ([1 + i * (Hk - 2) // 31 for i in range(32)] if Hk <= 64
+             else [9 + i % 8 for i in range(32)] + [17 + 5 * i for i in range(4)])
+    for i, n in enumerate(sizes):
+        ss[i, 0] = 0
+        ss[i, 0, 1 + torch.randperm(Hk - 1, generator=gen)[:n]] = 1
+    ss[-1, 0] = 0
+    ss[-1, 0, 0] = 1
+    W = torch.randn(Dk, Hk, generator=gen)
+    y = torch.randn(Bk, Dk, generator=gen) * 2
+    A = torch.randn(Hk, Hk, generator=gen)
+    Psi = A @ A.T / Hk + torch.eye(Hk)
+    pies = (1.0 + 2.0 * torch.rand(Hk, generator=gen)) / Hk
+    s2inv = torch.tensor(1.25)
+    G = W.T @ W
+    poisoned = Psi.clone()
+    poisoned[0, 0] = -1.0 / (s2inv * G[0, 0])
+    args = dict(ss=ss, Wty=y @ W, y2=(y * y).sum(-1), G=G, Psi=poisoned,
+                mus=torch.randn(Hk, generator=gen), pil_bar=torch.log(pies / (1 - pies)),
+                s2inv=s2inv)
+    return {k: v.to(device) for k, v in args.items()}, Psi.to(device)
+
+
+def sssc_lpj_bound(ss):
+    """bound_ms of sssc_lpj on these states: per state with n active units
+    that is solved, 2n^3 flops for Psi_AA G_AA, 2n^3/3 for the LU, 2n^2
+    each for G_AA a, Psi_AA u and the two triangular solves, 6n for the
+    sums; a state flagged by the overflow rule is not solved.  Bytes: each
+    input read once, lpj and bad written once."""
+    Bk, K, Hk = ss.shape
+    n = ss.sum(-1, dtype=torch.float64)
+    cap = overflow_cap(Hk)
+    n = torch.where(n <= cap, n, 0.0) if cap else n
+    flops = float((8.0 / 3.0 * n**3 + 8 * n**2 + 6 * n).sum())
+    nbytes = Bk * K * Hk + 4 * (Bk * Hk + Bk + 2 * Hk * Hk + 2 * Hk + 2 * Bk * K)
+    return bound_ms(flops, 0, nbytes)
+
+
+def sssc_suffstat_bound(ss):
+    """bound_ms of sssc_suffstat: per solved state with n active units two
+    n x n inversions (2n^3 flops each), 2n^2 each for G_AA mus and
+    lambda u, n^2 for M, 4n^2 for the r (lambda + kappa kappa^T) and r s s^T
+    shares and 4n for kappa and the per-datapoint sums (a flagged state
+    only its n^2 + n); per datapoint with u distinct active units, 4u^2
+    for the two outer products.  Bytes: inputs read once, outputs written
+    once."""
+    Bk, S_, Hk = ss.shape
+    n = ss.sum(-1, dtype=torch.float64)
+    cap = overflow_cap(Hk)
+    solved = n <= cap if cap else torch.ones_like(n, dtype=torch.bool)
+    flops = torch.where(solved, 4 * n**3 + 9 * n**2 + 4 * n, n**2 + n).sum()
+    u = (ss != 0).any(1).sum(-1, dtype=torch.float64)
+    flops = float(flops + (4 * u**2).sum())
+    nbytes = Bk * S_ * Hk + 4 * (Bk * S_ + 3 * Bk * Hk + 2 * Hk * Hk + Hk + 4 * Hk * Hk)
+    return bound_ms(flops, 0, nbytes)
+
+
+def suffstat_errors(ss_args, Hk):
+    """sssc_suffstat against its plain version: each output's largest
+    error over its largest magnitude, which must be within 4e-5, and the
+    largest absolute error."""
+    got, want = sssc_suffstat(**ss_args), sssc_suffstat_plain(**ss_args)
+    torch.cuda.synchronize()
+    errs = []
+    for name, g, w in zip(("xpt_sz", "xpt_s", "xpt_ss", "xpt_szsz", "s_sz", "sz_sz"),
+                          got, want):
+        e = ((g - w).abs().max() / w.abs().max().clamp(min=1e-30)).item()
+        if not e <= 4e-5:
+            raise AssertionError(f"sssc_suffstat H={Hk} {name}: relative err {e:.3g}")
+        errs.append(e)
+    return errs, max((g - w).abs().max().item() for g, w in zip(got, want))
+
+
+def zero_pivot_suffstat(ss_args):
+    """sssc_suffstat against its plain version where the unpivoted
+    elimination meets a zero pivot: Psi[0, 0] = 0, with the last
+    datapoint's slot 0 the single unit 0 (lambda = 0, kappa = mus_0) and
+    its slot 1 the units {0, 5} (left out of the solve), both with
+    responsibility 0.5."""
+    args = dict(ss_args, ss=ss_args["ss"].clone(), Psi=ss_args["Psi"].clone(),
+                rs=ss_args["rs"].clone())
+    args["Psi"][0, 0] = 0.0
+    args["ss"][-1, 1] = 0
+    args["ss"][-1, 1, [0, 5]] = 1
+    args["rs"][-1, :2] = 0.5
+    errs, _ = suffstat_errors(args, 32)
+    say(f"sssc_suffstat zero-pivot Psi: max err / max value {max(errs):.3g}")
+
+
+def check_sssc_kernels(device, gen):
+    """Both ES3C kernels against their plain versions on the card, at the
+    shapes of the sssc_primary (H = 32) and sssc_fl (H = 100) paths.
+    Tolerances of evo_tpu's own tests (tests/test_pallas_sssc.py): lpj
+    within 2e-3 + 2e-4 |lpj| with identical bad flags and NaN exactly on
+    the flagged states; each suffstat output within 4e-5 of its largest
+    magnitude.  The suffstat runs under the unpoisoned Psi, with
+    responsibilities zero on the states the lpj flags (as the E-step's
+    reset_lpj leaves them)."""
+    rows = {}
+    for Bk, K, Hk in ((4096, 20, 32), (4096, 10, 32), (2048, 15, 100), (2048, 10, 100)):
+        args, clean_psi = sssc_inputs(Bk, K, Hk, gen, device)
+        (lpj, bad), (lpj_p, bad_p) = sssc_lpj(**args), sssc_lpj_plain(**args)
+        torch.cuda.synchronize()
+        flagged = bad > 0
+        if not (torch.equal(bad, bad_p) and torch.equal(torch.isnan(lpj), flagged)
+                and torch.equal(torch.isnan(lpj_p), flagged)):
+            raise AssertionError(f"sssc_lpj B={Bk} K={K} H={Hk}: bad flags or NaNs differ")
+        err = (lpj - lpj_p).abs()[~flagged]
+        if not bool((err <= 2e-3 + 2e-4 * lpj_p.abs()[~flagged]).all()):
+            raise AssertionError(f"sssc_lpj H={Hk} K={K}: max err {err.max().item():.3g} "
+                                 "over tolerance")
+        ms = cuda_ms(lambda: sssc_lpj(**args))
+        plain = cuda_ms(lambda: sssc_lpj_plain(**args))
+        bnd, by = sssc_lpj_bound(args["ss"])
+        say(f"sssc_lpj B={Bk} K={K} H={Hk}: max_abs_err {err.max().item():.3g}, "
+            f"{int(flagged.sum())} flagged, max |s| {int(args['ss'].sum(-1).max())}; "
+            f"{ms:.4f} ms, plain {plain:.4f} ms, bound {bnd:.4f} ms ({by})")
+        if (Bk, K, Hk) == (4096, 20, 32):  # the K^(n) launch of sssc_primary
+            rows["sssc_lpj"] = dict(max_abs_err=err.max().item(), ms=ms, plain_ms=plain,
+                                    bound_ms=bnd, bound_by=by)
+        if K == 10:
+            continue
+        ss_args = dict(ss=args["ss"], Wty=args["Wty"], G=args["G"], Psi=clean_psi,
+                       mus=args["mus"], s2inv=args["s2inv"])
+        rs = torch.softmax(torch.randn(Bk, K, generator=gen) * 3, -1).to(device)
+        ss_args["rs"] = torch.where(flagged, 0.0, rs).contiguous()
+        errs, abs_err = suffstat_errors(ss_args, Hk)
+        if Hk == 32:
+            zero_pivot_suffstat(ss_args)
+        ms = cuda_ms(lambda: sssc_suffstat(**ss_args))
+        plain = cuda_ms(lambda: sssc_suffstat_plain(**ss_args))
+        bnd, by = sssc_suffstat_bound(args["ss"])
+        say(f"sssc_suffstat B={Bk} S={K} H={Hk}: max err / max value {max(errs):.3g} "
+            f"(max_abs_err {abs_err:.3g}), {int(flagged.sum())} flagged; {ms:.4f} ms, "
+            f"plain {plain:.4f} ms, bound {bnd:.4f} ms ({by})")
+        if Hk == 32:
+            rows["sssc_suffstat"] = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain,
+                                         bound_ms=bnd, bound_by=by)
+    return rows
+
+
 def bars_data(Hx, N, seed):
     """Bars-test data (H/2 horizontal and H/2 vertical bars, amplitude 10,
     pi = 2/H, sigma = 1), made on the host."""
@@ -282,6 +454,67 @@ def primary_setup(device):
     return model, data, cfg, estate, model.standard_init(data, seed=0, y_host=Y)
 
 
+def exact_sssc(launches):
+    """One exact-mode ES3C epoch (H = 8, S = 2^8, N = 2048 in 2 blocks,
+    data from SSSC.generate_data) on the card against the CPU's plain
+    path: F within 1e-5 |F|, each parameter within 1e-4 of its largest
+    magnitude."""
+    Hx, Dx, Nx = 8, 16, 2048
+    g = torch.Generator().manual_seed(1)
+    A = torch.randn(Hx, Hx, generator=g) * 0.3
+    gen_params = SSSCParams(W=2 * torch.randn(Dx, Hx, generator=g),
+                            pies=torch.full((Hx,), 2.0 / Hx), mus=torch.randn(Hx, generator=g),
+                            Psi=A @ A.T + torch.eye(Hx), sigma2=torch.tensor(0.5))
+    Y = SSSC(D=Dx, H=Hx, device="cpu").generate_data(gen_params, Nx, g)["y"].numpy()
+    F, P = {}, {}
+    for dev in ("cpu", DEVICE):
+        model = SSSC(D=Dx, H=Hx, device=dev)
+        data = make_data(Y, n_blocks=2, device=dev)
+        cfg, estate = init_states(N=Nx, S=2**Hx, H=Hx, n_blocks=2, device=dev)
+        params = model.standard_init(data, seed=1, y_host=Y)
+        if dev == DEVICE:
+            launches.reset()
+        params, estate, stats, _ = model.em_step(
+            params, estate, data, torch.Generator(device=dev).manual_seed(0), cfg)
+        F[dev], P[dev] = float(stats.F), {k: v.cpu() for k, v in vars(params).items()}
+        if dev == DEVICE:
+            launches.expect(sssc_lpj=2, sssc_suffstat=2)
+    errs = {k: ((P[DEVICE][k] - v).abs().max() / v.abs().max()).item()
+            for k, v in P["cpu"].items()}
+    say(f"exact ES3C H={Hx} N={Nx}: F card {F[DEVICE]:.6f}, F cpu {F['cpu']:.6f}, "
+        f"max |d| / max value {({k: float(f'{e:.3g}') for k, e in errs.items()})}")
+    if not abs(F[DEVICE] - F["cpu"]) <= 1e-5 * abs(F["cpu"]):
+        raise AssertionError("exact-mode ES3C F differs between the card and the CPU")
+    if not all(e <= 1e-4 for e in errs.values()):
+        raise AssertionError(f"exact-mode ES3C parameters differ: {errs}")
+
+
+def sssc_setup(conf):
+    """A set-up function for ``drive``: an ES3C configuration (n_blocks,
+    B, D, H, S, parents, children, slab noise) with data made on the host
+    from seed 0 as bench.py makes it (the slab noise as bench.py:234-237),
+    initial states and Theta^0 from seed 0."""
+    nb, Bk, Dk, Hk, Sk, parents, children, slab_noise = conf
+
+    def setup(device):
+        N = nb * Bk
+        rng = np.random.default_rng(0)
+        if slab_noise:
+            zf = 1.0 + 0.3 * rng.standard_normal((N, Hk)).astype(np.float32)
+            s = ((rng.random((N, Hk)) <= 2 / Hk) * zf).astype(np.float32)
+        else:
+            s = (rng.random((N, Hk)) <= 2 / Hk).astype(np.float32)
+        Y = s @ rng.standard_normal((Dk, Hk)).astype(np.float32).T \
+            + rng.standard_normal((N, Dk)).astype(np.float32)
+        model = SSSC(D=Dk, H=Hk, device=device)
+        data = make_data(Y, n_blocks=nb, device=device)
+        cfg, estate = init_states(N=N, S=Sk, H=Hk, no_parents=parents, no_children=children,
+                                  no_generations=1, n_blocks=nb, seed=0, device=device)
+        return model, data, cfg, estate, model.standard_init(data, seed=0, y_host=Y)
+
+    return setup
+
+
 def _device_us(evt):
     for name in ("self_device_time_total", "self_cuda_time_total"):
         if hasattr(evt, name):
@@ -309,9 +542,14 @@ def profile_epoch(model, params, estate, data, gen, cfg, median_ms):
         say(f"  {_device_us(e) / 1e3:8.2f} ms {e.count:5d}x {e.key[:70]}")
 
 
-def main_path(launches):
+def drive(setup, launches, expect, profile=False):
+    """Drive one configuration on the card through its public entry points:
+    set-up, then 1 warm-up and 3 timed EM epochs with the launch counts set
+    to 0 just before and checked just after, F finite and rising, the state
+    and parameters well formed; with ``profile`` one more epoch under
+    torch.profiler.  Returns the launch counts of the epochs."""
     t0 = time.perf_counter()
-    model, data, cfg, estate, params = primary_setup(DEVICE)
+    model, data, cfg, estate, params = setup(DEVICE)
     gen = torch.Generator(device=DEVICE).manual_seed(0)
     torch.cuda.synchronize()
     say(f"set-up (host data, unique initial states, transfer) {time.perf_counter() - t0:.1f} s")
@@ -324,21 +562,26 @@ def main_path(launches):
         torch.cuda.synchronize()
         ms.append(1e3 * (time.perf_counter() - t))
         Fs.append(float(stats.F))
-    counts = launches.expect(lpj=2 * N_BLOCKS * (WARM_EPOCHS + TIMED_EPOCHS),
-                             suffstat=N_BLOCKS * (WARM_EPOCHS + TIMED_EPOCHS))
+    counts = launches.expect(**{k: v * (WARM_EPOCHS + TIMED_EPOCHS) for k, v in expect.items()})
     timed = ms[WARM_EPOCHS:]
     say(f"F per epoch {[round(f, 4) for f in Fs]}")
     say(f"ms per epoch {[round(m, 1) for m in ms]} (first is warm-up); "
         f"timed median {sorted(timed)[len(timed) // 2]:.1f} ms on {CARD['smi']}")
     say(f"S_nunique {float(stats.S_nunique):.3f}, S_sub {float(stats.S_sub):.3f}, "
         f"resets {[int(x) for x in (stats.n_reset_nan, stats.n_reset_small, stats.n_reset_inf)]}")
+    say(f"guards: sigma_floor {int(stats.n_guard_sigma_floor)}, mus_freeze "
+        f"{int(stats.n_guard_mus_freeze)}, psi_freeze {int(stats.n_guard_psi_freeze)}, "
+        f"psi_renorm {float(stats.guard_psi_renorm):.4g}")
     if not all(np.isfinite(Fs)):
         raise AssertionError(f"non-finite F: {Fs}")
     if not Fs[-1] > Fs[0]:
         raise AssertionError(f"F did not rise over the epochs: {Fs}")
-    if tuple(estate.ss.shape) != (N_BLOCKS, B, S, H) or not bool(torch.isfinite(params.W).all()):
+    shape = (data.n_blocks, data.y.shape[1], cfg.S, cfg.H)
+    if tuple(estate.ss.shape) != shape or not all(
+            bool(torch.isfinite(v).all()) for v in vars(params).values()):
         raise AssertionError("malformed state or parameters after the epochs")
-    profile_epoch(model, params, estate, data, gen, cfg, sorted(timed)[len(timed) // 2])
+    if profile:
+        profile_epoch(model, params, estate, data, gen, cfg, sorted(timed)[len(timed) // 2])
     return counts
 
 
@@ -346,13 +589,16 @@ class Launches:
     """Reads and resets the kernel wrappers' launch counters."""
 
     def __init__(self):
-        self.fns = {"lpj": bsc_lpj, "suffstat": bsc_suffstat}
+        self.fns = {"lpj": bsc_lpj, "suffstat": bsc_suffstat, "sssc_lpj": sssc_lpj,
+                    "sssc_suffstat": sssc_suffstat}
 
     def reset(self):
         for f in self.fns.values():
             f.launches = 0
 
     def expect(self, **want):
+        """Check every count: the kernels not named must not have run."""
+        want = {k: want.get(k, 0) for k in self.fns}
         got = {k: f.launches for k, f in self.fns.items()}
         if got != want:
             raise AssertionError(f"kernel launches {got}, expected {want}")
@@ -389,10 +635,20 @@ def main():
     launches = Launches()
     with Phase("kernels"):
         rows = check_kernels(DEVICE)
+        rows.update(check_sssc_kernels(DEVICE, torch.Generator().manual_seed(1)))
     with Phase("exact"):
         exact_epoch(launches)
     with Phase("main"):
-        counts = main_path(launches)
+        counts = drive(primary_setup, launches, dict(lpj=2 * N_BLOCKS, suffstat=N_BLOCKS),
+                       profile=True)
+    with Phase("exact_sssc"):
+        exact_sssc(launches)
+    with Phase("sssc_fl"):
+        fl = drive(sssc_setup(SSSC_FL), launches, dict(sssc_lpj=2, sssc_suffstat=1))
+    with Phase("sssc_primary"):
+        prim = drive(sssc_setup(SSSC_PRIMARY), launches,
+                     dict(sssc_lpj=2 * SSSC_PRIMARY[0], sssc_suffstat=SSSC_PRIMARY[0]),
+                     profile=True)
 
     kernels = [
         dict(name="bsc_lpj", route="cuda", source="evo_tpu_torch/csrc/bsc_lpj.cu",
@@ -401,6 +657,14 @@ def main():
         dict(name="bsc_suffstat", route="cuda", source="evo_tpu_torch/csrc/bsc_suffstat.cu",
              replaces="evo_tpu/ops/pallas_suffstat.py:60", launches=counts["suffstat"],
              library_ms=None, **rows["bsc_suffstat"]),
+        # launches: the two ES3C paths' runs together
+        dict(name="sssc_lpj", route="cuda", source="evo_tpu_torch/csrc/sssc_lpj.cu",
+             replaces="evo_tpu/ops/pallas_sssc.py:676",
+             launches=fl["sssc_lpj"] + prim["sssc_lpj"], library_ms=None, **rows["sssc_lpj"]),
+        dict(name="sssc_suffstat", route="cuda", source="evo_tpu_torch/csrc/sssc_suffstat.cu",
+             replaces="evo_tpu/ops/pallas_sssc.py:1015",
+             launches=fl["sssc_suffstat"] + prim["sssc_suffstat"], library_ms=None,
+             **rows["sssc_suffstat"]),
     ]
     say(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,11 +1,11 @@
 """Carry parameters, states and data between evo_tpu and the port.
 
 No counterpart in evo_tpu.  The JAX side is reached only through NumPy:
-anything with the right attributes (evo_tpu's ``BSCParams``, ``EState`` and
-``Data``, or any object holding NumPy arrays under those names) comes in,
-and plain dictionaries of NumPy arrays go out, which evo_tpu's constructors
-take as keyword arguments after ``jnp.asarray``.  This module imports
-neither JAX nor evo_tpu.
+anything with the right attributes (evo_tpu's ``BSCParams``,
+``SSSCParams``, ``EState`` and ``Data``, or any object holding NumPy arrays
+under those names) comes in, and plain dictionaries of NumPy arrays go out,
+which evo_tpu's constructors take as keyword arguments after
+``jnp.asarray``.  This module imports neither JAX nor evo_tpu.
 """
 
 from __future__ import annotations
@@ -16,6 +16,7 @@ import torch
 from evo_tpu_torch._device import resolve_device
 from evo_tpu_torch.models.base import Data
 from evo_tpu_torch.models.bsc import BSCParams
+from evo_tpu_torch.models.sssc import SSSCParams
 from evo_tpu_torch.variational.state_init import EState
 
 
@@ -36,6 +37,18 @@ def params_from_numpy(p, device=None) -> BSCParams:
 
 def params_to_numpy(p: BSCParams) -> dict:
     return dict(W=_np(p.W), pi=_np(p.pi), sigma=_np(p.sigma), pies=_np(p.pies))
+
+
+def sssc_params_from_numpy(p, device=None) -> SSSCParams:
+    """SSSC parameters (attributes W, pies, mus, Psi, sigma2) -> port tensors."""
+    dev = resolve_device(device)
+    return SSSCParams(W=_t(p.W, dev), pies=_t(p.pies, dev), mus=_t(p.mus, dev),
+                      Psi=_t(p.Psi, dev), sigma2=_t(p.sigma2, dev))
+
+
+def sssc_params_to_numpy(p: SSSCParams) -> dict:
+    return dict(W=_np(p.W), pies=_np(p.pies), mus=_np(p.mus), Psi=_np(p.Psi),
+                sigma2=_np(p.sigma2))
 
 
 def estate_from_numpy(e, device=None) -> EState:

@@ -76,6 +76,20 @@ def make_data(y: np.ndarray, x: Optional[np.ndarray] = None, n_blocks: int = 1,
                 row_valid=blk(row_valid), incomplete=incomplete)
 
 
+def check_supported(data: Data, cfg=None, do_reconstruction=False):
+    """Raise NotImplementedError for what the port's models do not run
+    yet: incomplete data, reconstruction, packed and permanent states, and
+    the merges other than unification."""
+    if data.incomplete or do_reconstruction:
+        raise NotImplementedError(
+            "incomplete data and reconstruction are not ported yet")
+    if cfg is not None and (cfg.packed_states or cfg.allzero or cfg.background
+                            or not cfg.unification or cfg.swap_merge):
+        raise NotImplementedError(
+            "packed states, permanent states and the non-default merge "
+            "modes are not ported yet")
+
+
 def block_gram(W: torch.Tensor, y_b: torch.Tensor):
     """Complete-data lpj precomputation: (G = W^T W [H, H], Wty = y W [B, H],
     y2 = ||y||^2 [B]).  True f32: the package turns TF32 off."""
@@ -85,8 +99,19 @@ def block_gram(W: torch.Tensor, y_b: torch.Tensor):
 @dataclasses.dataclass
 class StepStats:
     """Per-epoch diagnostics (0-dim tensors): the free energy F, the mean
-    number of new unique states and of substitutions per datapoint, the lpj
-    reset counters, and whether the sigma floor clamped the update."""
+    number of new unique states and of substitutions per datapoint, and the
+    lpj reset counters, as evo_tpu reports them.  The guard fields surface
+    the f32 guard rails (evo_tpu/models/base.py:152-180); a model without
+    a rail reports 0 for it:
+
+      n_guard_sigma_floor: 1 if BSC's sigma floor (1e-3 of the data RMS)
+          clamped the update this epoch
+      n_guard_mus_freeze / n_guard_psi_freeze: number of SSSC latent units
+          whose mus / Psi rows were frozen at their previous value because
+          their activation mass collapsed
+      guard_psi_renorm: size of the SSSC gauge renormalization,
+          max_h |log d_h| with d = sqrt(diag(Psi)), f32
+    """
 
     F: torch.Tensor
     S_nunique: torch.Tensor
@@ -95,3 +120,6 @@ class StepStats:
     n_reset_small: torch.Tensor
     n_reset_inf: torch.Tensor
     n_guard_sigma_floor: torch.Tensor
+    n_guard_mus_freeze: torch.Tensor
+    n_guard_psi_freeze: torch.Tensor
+    guard_psi_renorm: torch.Tensor

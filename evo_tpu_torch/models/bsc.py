@@ -27,7 +27,7 @@ import numpy as np
 import torch
 
 from evo_tpu_torch._device import resolve_device
-from evo_tpu_torch.models.base import Data, StepStats, block_gram
+from evo_tpu_torch.models.base import Data, StepStats, block_gram, check_supported
 from evo_tpu_torch.ops.bsc_lpj import bsc_lpj
 from evo_tpu_torch.ops.bsc_suffstat import bsc_suffstat
 from evo_tpu_torch.ops.linalg import equilibrated_pd_inverse
@@ -54,17 +54,6 @@ class BSCParams:
     pies: torch.Tensor  # [H], per-unit pi_h, diagnostic only
 
 
-def _check_supported(data: Data, cfg: EAConfig = None, do_reconstruction=False):
-    if data.incomplete or do_reconstruction:
-        raise NotImplementedError(
-            "incomplete data and reconstruction are not ported yet")
-    if cfg is not None and (cfg.packed_states or cfg.allzero or cfg.background
-                            or not cfg.unification or cfg.swap_merge):
-        raise NotImplementedError(
-            "packed states, permanent states and the non-default merge "
-            "modes are not ported yet")
-
-
 @dataclasses.dataclass(frozen=True)
 class BSC:
     """Static model configuration.  ``device`` None means the CUDA card."""
@@ -84,7 +73,7 @@ class BSC:
         """Noisy-data-mean init (reference _models.py:206-283), drawn with
         NumPy from ``seed`` exactly as evo_tpu draws it.  Pass ``y_host``
         (the flat [N, D] host data) to skip the device-to-host copy."""
-        _check_supported(data)
+        check_supported(data)
         if y_host is not None:
             y = np.asarray(y_host).reshape(-1, self.D)
         else:
@@ -194,7 +183,7 @@ class BSC:
         the free energy of the updated K^(n) under the old parameters, and
         the M-step consumes the merged states and lpjs.  ``generator`` (on
         the data's device) drives every random draw of the EA."""
-        _check_supported(data, cfg, do_reconstruction)
+        check_supported(data, cfg, do_reconstruction)
         params = self.check_params(params)
         pre = self._precompute(params, data)
         dt, dev = params.W.dtype, params.W.device
@@ -240,7 +229,9 @@ class BSC:
         stats = StepStats(
             F=pre["ljc"] + Fsum / N, S_nunique=nuni / N, S_sub=nsub / N,
             n_reset_nan=resets[0], n_reset_small=resets[1], n_reset_inf=resets[2],
-            n_guard_sigma_floor=guard)
+            n_guard_sigma_floor=guard, n_guard_mus_freeze=torch.zeros_like(guard),
+            n_guard_psi_freeze=torch.zeros_like(guard),
+            guard_psi_renorm=torch.zeros((), dtype=torch.float32, device=dev))
         return new_params, EState(ss=ss_all, lpj=lpj_all), stats, None
 
     # ---------------------------------------------------------------- M-step
@@ -271,7 +262,7 @@ class BSC:
     def exact_free_energy(self, params: BSCParams, data: Data) -> torch.Tensor:
         """Exact log-likelihood by enumerating all 2^H states (small H): the
         correctness oracle."""
-        _check_supported(data)
+        check_supported(data)
         params = self.check_params(params)
         pre = self._precompute(params, data)
         sm = torch.from_numpy(full_state_matrix(self.H).view(np.int8)).to(params.W.device)
@@ -287,7 +278,7 @@ class BSC:
 
     def free_energy(self, params: BSCParams, estate: EState, data: Data) -> torch.Tensor:
         """Truncated free energy from the stored lpj."""
-        _check_supported(data)
+        check_supported(data)
         pre = self._precompute(self.check_params(params), data)
         lpj = estate.lpj.reshape(-1, estate.lpj.shape[-1])
         return free_energy_from_lpj(lpj, pre["ljc"], data.row_valid.reshape(-1))

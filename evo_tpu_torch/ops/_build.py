@@ -1,12 +1,13 @@
 """Build the package's CUDA sources with ``nvcc`` and bind them with ctypes.
 
 No counterpart in evo_tpu (Pallas kernels are compiled by JAX).  All
-``csrc/*.cu`` files go into one shared library with a plain C interface, in
-one ``nvcc`` call with a time limit, at the first kernel launch in a
-process: no PyTorch headers, no ``torch.utils.cpp_extension``, no ``ninja``
-and no lock file to go stale.  The library's file name carries a hash of the
-sources and the flags, and is written under a temporary name and then
-renamed, so a build that was cut off is never loaded.
+``csrc/*.cu`` files, with the ``csrc/*.cuh`` headers they include, go into
+one shared library with a plain C interface, in one ``nvcc`` call with a
+time limit, at the first kernel launch in a process: no PyTorch headers, no
+``torch.utils.cpp_extension``, no ``ninja`` and no lock file to go stale.
+The library's file name carries a hash of the sources, the headers and the
+flags, and is written under a temporary name and then renamed, so a build
+that was cut off is never loaded.
 """
 
 from __future__ import annotations
@@ -34,6 +35,12 @@ SIGNATURES = {
     "evo_bsc_lpj": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     # ss, rs, rho, sabs, wq, partial, B, S, H, chunk, stream
     "evo_bsc_suffstat": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # ss, wty, y2, G, Psi, mus, pil_bar, s2inv, lpj, bad, B, K, H, cap, stream
+    "evo_sssc_lpj": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # ss, rs, wty, G, Psi, mus, s2inv, xpt_sz, xpt_s, out, partial, B, S, H, cap,
+    # chunk, stream
+    "evo_sssc_suffstat": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                          _P],
 }
 
 
@@ -52,7 +59,7 @@ def build() -> dict:
     t0 = time.perf_counter()
     sources = sorted(CSRC.glob("*.cu"))
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    for src in sources + sorted(CSRC.glob("*.cuh")):
         h.update(src.name.encode() + src.read_bytes())
     out = BUILD_DIR / f"evo_kernels-{h.hexdigest()[:16]}.so"
     log = ""
