@@ -24,9 +24,20 @@ Phases, one line each with its seconds:
   8. sssc_primary  the repo's ES3C benchmark size (bench.py:181-191:
                N = 65,536 in 16 blocks, D = 25, H = 32, S = 20, 10 parents x
                1 child): the same, then one more epoch under torch.profiler
-The kernels phase also holds the two ES3C kernels against their plain
-versions at those paths' shapes.  Then a JSON line with the kernels'
-numbers and, last, the result line.
+  9. exact_sssc_incomplete, exact_bsc_incomplete   one exact-mode epoch
+               with 15% of the entries missing and reconstruction on the card
+               against the same epoch on the CPU's plain path
+ 10. sssc_inpaint  ES3C inpainting at full width: a synthetic 321 x 481 RGB
+               image from seed 0 with 10% of its entries missing, 5 x 5
+               patches (N = 151,209, D = 75) in one block, H = 32, S = 20,
+               10 parents x 1 child, learning W, pies and sigma2, the
+               reconstruction every epoch: 1 warm-up and 3 timed epochs, one
+               more under torch.profiler, then the mean and median merge of
+               the last reconstruction on the card and their PSNR
+ 11. bsc_inpaint   EBSC (H = 32) on the same data: 1 warm-up, 2 timed epochs
+The kernels phase also holds the ES3C kernels, the masked ones (incomplete
+data) included, against their plain versions at those paths' shapes.  Then
+a JSON line with the kernels' numbers and, last, the result line.
 
 Any failed check raises and the script exits non-zero; it also exits
 non-zero without a result when no CUDA card is present.  The whole run is
@@ -46,11 +57,24 @@ import numpy as np
 import torch
 
 from evo_tpu_torch import BSC, SSSC, SSSCParams, init_states, make_data
+from evo_tpu_torch.models.base import block_gram
 from evo_tpu_torch.ops import _build
 from evo_tpu_torch.ops.bsc_lpj import bsc_lpj, bsc_lpj_plain, key_words
 from evo_tpu_torch.ops.bsc_suffstat import bsc_suffstat, bsc_suffstat_plain
-from evo_tpu_torch.ops.sssc_lpj import overflow_cap, sssc_lpj, sssc_lpj_plain
-from evo_tpu_torch.ops.sssc_suffstat import sssc_suffstat, sssc_suffstat_plain
+from evo_tpu_torch.ops.sssc_lpj import (
+    overflow_cap,
+    sssc_lpj,
+    sssc_lpj_masked,
+    sssc_lpj_masked_plain,
+    sssc_lpj_plain,
+)
+from evo_tpu_torch.ops.sssc_suffstat import (
+    sssc_suffstat,
+    sssc_suffstat_masked,
+    sssc_suffstat_plain,
+)
+from evo_tpu_torch.prepost import MultiDimOverlappingPatches
+from evo_tpu_torch.prepost.device_merge import DeviceMerger
 
 DEADLINE_S = 600
 DEVICE = "cuda"
@@ -72,6 +96,13 @@ WARM_EPOCHS, TIMED_EPOCHS = 1, 3
 # S, parents, children, slab noise)
 SSSC_PRIMARY = (16, 4096, 25, 32, 20, 10, 1, False)
 SSSC_FL = (1, 2048, 64, 100, 15, 5, 2, True)
+# ES3C inpainting at the size PARITY.md runs it (castle.jpg, 321 x 481 RGB;
+# the image apps' defaults, evo_tpu/apps/common.py:75,151 and images.py:63-68):
+# 5 x 5 patches, one block, H, S, parents x children, 10% missing
+INPAINT_IMAGE, INPAINT_PATCH, INPAINT_MISSING = (321, 481, 3), 5, 0.10
+INPAINT_H, INPAINT_S, INPAINT_PARENTS, INPAINT_CHILDREN = 32, 20, 10, 1
+INPAINT_N = (INPAINT_IMAGE[0] - INPAINT_PATCH + 1) * (INPAINT_IMAGE[1] - INPAINT_PATCH + 1)
+INPAINT_D = INPAINT_PATCH**2 * INPAINT_IMAGE[2]
 
 
 def _watchdog():
@@ -314,10 +345,10 @@ def sssc_suffstat_bound(ss):
     return bound_ms(flops, 0, nbytes)
 
 
-def suffstat_errors(ss_args, Hk):
-    """sssc_suffstat against its plain version: each output's largest
-    error over its largest magnitude, which must be within 4e-5, and the
-    largest absolute error."""
+def suffstat_errors(ss_args, label):
+    """sssc_suffstat (the masked kernel for a per-datapoint G) against its
+    plain version: each output's largest error over its largest magnitude,
+    which must be within 4e-5, and the largest absolute error."""
     got, want = sssc_suffstat(**ss_args), sssc_suffstat_plain(**ss_args)
     torch.cuda.synchronize()
     errs = []
@@ -325,7 +356,7 @@ def suffstat_errors(ss_args, Hk):
                           got, want):
         e = ((g - w).abs().max() / w.abs().max().clamp(min=1e-30)).item()
         if not e <= 4e-5:
-            raise AssertionError(f"sssc_suffstat H={Hk} {name}: relative err {e:.3g}")
+            raise AssertionError(f"sssc_suffstat {label} {name}: relative err {e:.3g}")
         errs.append(e)
     return errs, max((g - w).abs().max().item() for g, w in zip(got, want))
 
@@ -342,7 +373,7 @@ def zero_pivot_suffstat(ss_args):
     args["ss"][-1, 1] = 0
     args["ss"][-1, 1, [0, 5]] = 1
     args["rs"][-1, :2] = 0.5
-    errs, _ = suffstat_errors(args, 32)
+    errs, _ = suffstat_errors(args, "H=32 zero-pivot")
     say(f"sssc_suffstat zero-pivot Psi: max err / max value {max(errs):.3g}")
 
 
@@ -383,7 +414,7 @@ def check_sssc_kernels(device, gen):
                        mus=args["mus"], s2inv=args["s2inv"])
         rs = torch.softmax(torch.randn(Bk, K, generator=gen) * 3, -1).to(device)
         ss_args["rs"] = torch.where(flagged, 0.0, rs).contiguous()
-        errs, abs_err = suffstat_errors(ss_args, Hk)
+        errs, abs_err = suffstat_errors(ss_args, f"H={Hk}")
         if Hk == 32:
             zero_pivot_suffstat(ss_args)
         ms = cuda_ms(lambda: sssc_suffstat(**ss_args))
@@ -395,6 +426,148 @@ def check_sssc_kernels(device, gen):
         if Hk == 32:
             rows["sssc_suffstat"] = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain,
                                          bound_ms=bnd, bound_by=by)
+    return rows
+
+
+def masked_inputs(Bk, K, Hk, gen, device):
+    """Inputs of the masked ES3C kernels at the inpainting path's scale
+    (D = 75, 10% of the entries missing, G_n from the port's block_gram on
+    the card): states at the EA's sparsity (2/H bits on) with unit 0 left
+    out, datapoints 0-31 with |s| = 1 + i (H - 1) // 31 in slot 0 (up to
+    |s| = H, all units on), and the last datapoint's slot 0 the single unit
+    0.  Returns the lpj's arguments under a well-conditioned Psi, and a Psi
+    with a zero row and column for unit 0, under which exactly the states
+    that hold unit 0 (those two) have a singular Psi_AA."""
+    Dk = INPAINT_D
+    ss = (torch.rand(Bk, K, Hk, generator=gen) < 2.0 / Hk).to(torch.int8)
+    ss[..., 0] = 0
+    for i in range(32):
+        n = 1 + i * (Hk - 1) // 31
+        ss[i, 0] = 0
+        units = torch.arange(Hk) if n == Hk else 1 + torch.randperm(Hk - 1, generator=gen)[:n]
+        ss[i, 0, units] = 1
+    ss[-1, 0] = 0
+    ss[-1, 0, 0] = 1
+    W = torch.randn(Dk, Hk, generator=gen)
+    m = torch.rand(Bk, Dk, generator=gen) >= INPAINT_MISSING
+    y = torch.randn(Bk, Dk, generator=gen) * 2 * m
+    A = torch.randn(Hk, Hk, generator=gen)
+    Psi = A @ A.T / Hk + torch.eye(Hk)
+    pies = (1.0 + 2.0 * torch.rand(Hk, generator=gen)) / Hk
+    poisoned = Psi.clone()
+    poisoned[0, :] = 0.0
+    poisoned[:, 0] = 0.0
+    G, Wty, y2 = block_gram(W.to(device), y.to(device), m.to(device), True)
+    args = dict(ss=ss.to(device), Wty=Wty, y2=y2, G=G, Psi=Psi.to(device),
+                mus=torch.randn(Hk, generator=gen).to(device),
+                pil_bar=torch.log(pies / (1 - pies)).to(device),
+                s2inv=torch.tensor(1.25, device=device))
+    return args, poisoned.to(device)
+
+
+def gram_union_bytes(ss):
+    """Bytes of G_n a masked kernel must read: per datapoint the f32 entries
+    of G_n on the union of its states' active units, u^2 for u units."""
+    u = (ss != 0).any(1).sum(-1, dtype=torch.float64)
+    return 4.0 * float((u * u).sum())
+
+
+def masked_lpj_bound(ss):
+    """bound_ms of sssc_lpj_masked: per state with n active units two n x n
+    Gauss-Jordan inversions (2n^3 flops each), 2n^2 each for forming M,
+    G_AA a and lambda u, 8n for the sums; bytes: each input read once (G_n
+    only on the union of each datapoint's active units), lpj and bad
+    written once."""
+    Bk, K, Hk = ss.shape
+    n = ss.sum(-1, dtype=torch.float64)
+    flops = float((4 * n**3 + 6 * n**2 + 8 * n).sum())
+    g = gram_union_bytes(ss)
+    nbytes = Bk * K * Hk + 4 * (Bk * Hk + Bk + Hk * Hk + 2 * Hk + 2 * Bk * K) + g
+    return bound_ms(flops, 0, nbytes) + (g,)
+
+
+def masked_suffstat_bound(ss):
+    """bound_ms of sssc_suffstat_masked: the flops of sssc_suffstat_bound
+    (no state is over a cap); bytes: inputs read once (G_n only on the
+    union of each datapoint's active units), outputs written once."""
+    Bk, S_, Hk = ss.shape
+    n = ss.sum(-1, dtype=torch.float64)
+    u = (ss != 0).any(1).sum(-1, dtype=torch.float64)
+    flops = float((4 * n**3 + 9 * n**2 + 4 * n).sum() + (4 * u**2).sum())
+    g = gram_union_bytes(ss)
+    nbytes = Bk * S_ * Hk + 4 * (Bk * S_ + 3 * Bk * Hk + Hk * Hk + Hk + 4 * Hk * Hk) + g
+    return bound_ms(flops, 0, nbytes) + (g,)
+
+
+def check_masked_lpj(args, label):
+    """sssc_lpj_masked against its plain version: identical bad flags, NaN
+    exactly on them, the rest within 2e-3 + 2e-4 |lpj|.  Returns (max abs
+    error, flagged count)."""
+    (lpj, bad), (lpj_p, bad_p) = sssc_lpj_masked(**args), sssc_lpj_masked_plain(**args)
+    torch.cuda.synchronize()
+    flagged = bad > 0
+    if not (torch.equal(bad, bad_p) and torch.equal(torch.isnan(lpj), flagged)
+            and torch.equal(torch.isnan(lpj_p), flagged)):
+        raise AssertionError(f"sssc_lpj_masked {label}: bad flags or NaNs differ")
+    err = (lpj - lpj_p).abs()[~flagged]
+    if not bool((err <= 2e-3 + 2e-4 * lpj_p.abs()[~flagged]).all()):
+        raise AssertionError(f"sssc_lpj_masked {label}: max err {err.max().item():.3g} "
+                             "over tolerance")
+    return err.max().item(), int(flagged.sum())
+
+
+def check_masked_kernels(device, gen):
+    """Both masked ES3C kernels against their plain versions on the card:
+    at (B, K, H) = (4096, 20, 32), (4096, 10, 32) and (2048, 8, 64) with
+    dense states up to |s| = H, and at the inpainting path's own block
+    (151,209 datapoints, K = 20 and the 10 children), each under a
+    well-conditioned Psi (no state may be flagged) and under the poisoned
+    Psi of masked_inputs (the flags must be identical).  The suffstat runs
+    under both, with softmax responsibilities (nonzero on the poisoned
+    states too, so that the sanitizing is compared).  Tolerances of
+    evo_tpu's kernel tests, as for the complete-data kernels.  The plain
+    versions step through every elimination from Python and are timed over
+    3 calls, the kernels over 10."""
+    rows = {}
+    for Bk, K, Hk in ((4096, 20, 32), (4096, 10, 32), (2048, 8, 64),
+                      (INPAINT_N, INPAINT_S, INPAINT_H),
+                      (INPAINT_N, INPAINT_PARENTS * INPAINT_CHILDREN, INPAINT_H)):
+        label = f"B={Bk} K={K} H={Hk}"
+        args, poisoned = masked_inputs(Bk, K, Hk, gen, device)
+        err, nflag = check_masked_lpj(args, label)
+        if nflag:
+            raise AssertionError(f"sssc_lpj_masked {label}: {nflag} states flagged under a "
+                                 "well-conditioned Psi")
+        perr, pflag = check_masked_lpj(dict(args, Psi=poisoned), label + " poisoned")
+        want_flag = int(((args["ss"][..., 0] != 0)).sum())
+        if pflag != want_flag:
+            raise AssertionError(f"sssc_lpj_masked {label}: {pflag} flagged under the poisoned "
+                                 f"Psi, expected {want_flag}")
+        ms = cuda_ms(lambda: sssc_lpj_masked(**args))
+        plain = cuda_ms(lambda: sssc_lpj_masked_plain(**args), reps=3, warm=1)
+        bnd, by, gbytes = masked_lpj_bound(args["ss"])
+        say(f"sssc_lpj_masked {label}: max_abs_err {max(err, perr):.3g}, {pflag} flagged under "
+            f"the poisoned Psi, max |s| {int(args['ss'].sum(-1).max())}; {ms:.4f} ms, plain "
+            f"{plain:.4f} ms, bound {bnd:.4f} ms ({by}; G_n read {gbytes / 1e6:.3f} MB)")
+        if (Bk, K) == (INPAINT_N, INPAINT_S):  # the K^(n) launch of sssc_inpaint
+            rows["sssc_lpj_masked"] = dict(max_abs_err=max(err, perr), ms=ms, plain_ms=plain,
+                                           bound_ms=bnd, bound_by=by)
+        if K == 10:
+            continue
+        rs = torch.softmax(torch.randn(Bk, K, generator=gen) * 3, -1).to(device)
+        ss_args = dict(ss=args["ss"], rs=rs, Wty=args["Wty"], G=args["G"], Psi=args["Psi"],
+                       mus=args["mus"], s2inv=args["s2inv"])
+        rel, abs_err = suffstat_errors(ss_args, label)
+        prel, pabs = suffstat_errors(dict(ss_args, Psi=poisoned), label + " poisoned")
+        ms = cuda_ms(lambda: sssc_suffstat_masked(**ss_args))
+        plain = cuda_ms(lambda: sssc_suffstat_plain(**ss_args), reps=3, warm=1)
+        bnd, by, gbytes = masked_suffstat_bound(args["ss"])
+        say(f"sssc_suffstat_masked {label}: max err / max value {max(rel + prel):.3g} "
+            f"(max_abs_err {max(abs_err, pabs):.3g}); {ms:.4f} ms, plain {plain:.4f} ms, "
+            f"bound {bnd:.4f} ms ({by}; G_n read {gbytes / 1e6:.3f} MB)")
+        if Bk == INPAINT_N:
+            rows["sssc_suffstat_masked"] = dict(max_abs_err=max(abs_err, pabs), ms=ms,
+                                                plain_ms=plain, bound_ms=bnd, bound_by=by)
     return rows
 
 
@@ -489,6 +662,141 @@ def exact_sssc(launches):
         raise AssertionError(f"exact-mode ES3C parameters differ: {errs}")
 
 
+def exact_incomplete(kind, launches):
+    """One exact-mode epoch with 15% of the entries missing (MCAR) and
+    do_reconstruction=True on the card against the same epoch on the CPU's
+    plain path: ES3C at H = 8 (S = 2^8, N = 2048, data from
+    SSSC.generate_data) or EBSC at H = 10 (S = 2^10, N = 4096, bars data),
+    2 blocks.  F within 1e-5 |F|; each parameter and y_rec within 1e-4 of
+    its largest magnitude."""
+    if kind == "sssc":
+        Hx, Nx = 8, 2048
+        g = torch.Generator().manual_seed(2)
+        A = torch.randn(Hx, Hx, generator=g) * 0.3
+        gen_params = SSSCParams(W=2 * torch.randn(16, Hx, generator=g),
+                                pies=torch.full((Hx,), 2.0 / Hx),
+                                mus=torch.randn(Hx, generator=g), Psi=A @ A.T + torch.eye(Hx),
+                                sigma2=torch.tensor(0.5))
+        Y = SSSC(D=16, H=Hx, device="cpu").generate_data(gen_params, Nx, g)["y"].numpy()
+        expect = dict(sssc_lpj_masked=2, sssc_suffstat_masked=2)
+    else:
+        Hx, Nx = 10, 4096
+        Y = bars_data(Hx, Nx, seed=2)
+        expect = dict(suffstat=2)
+    Y = np.where(np.random.default_rng(3).random(Y.shape) < 0.15, np.nan, Y)
+    F, P, R = {}, {}, {}
+    for dev in ("cpu", DEVICE):
+        model = (SSSC if kind == "sssc" else BSC)(D=Y.shape[1], H=Hx, device=dev)
+        data = make_data(Y, n_blocks=2, device=dev)
+        cfg, estate = init_states(N=Nx, S=2**Hx, H=Hx, n_blocks=2, device=dev)
+        params = model.standard_init(data, seed=1, y_host=Y)
+        if dev == DEVICE:
+            launches.reset()
+        params, estate, stats, y_rec = model.em_step(
+            params, estate, data, torch.Generator(device=dev).manual_seed(0), cfg,
+            do_reconstruction=True)
+        F[dev], R[dev] = float(stats.F), y_rec.cpu()
+        P[dev] = {k: v.cpu() for k, v in vars(params).items()}
+        if dev == DEVICE:
+            launches.expect(**expect)
+    errs = {k: ((P[DEVICE][k] - v).abs().max() / v.abs().max()).item()
+            for k, v in P["cpu"].items()}
+    errs["y_rec"] = ((R[DEVICE] - R["cpu"]).abs().max() / R["cpu"].abs().max()).item()
+    say(f"exact incomplete {kind} H={Hx} N={Nx}: F card {F[DEVICE]:.6f}, F cpu {F['cpu']:.6f}, "
+        f"max |d| / max value {({k: float(f'{e:.3g}') for k, e in errs.items()})}")
+    if not abs(F[DEVICE] - F["cpu"]) <= 1e-5 * abs(F["cpu"]):
+        raise AssertionError(f"exact-mode incomplete {kind} F differs between card and CPU")
+    if not all(e <= 1e-4 for e in errs.values()):
+        raise AssertionError(f"exact-mode incomplete {kind} results differ: {errs}")
+
+
+def synthetic_image(seed=0):
+    """A piecewise-smooth RGB image of INPAINT_IMAGE's size in [0, 255],
+    made with NumPy from ``seed`` (in the spirit of evo_tpu's
+    apps/images.py:synthetic_image): a smooth colour field per channel,
+    flat rectangles and a shaded triangle, and a little pixel noise."""
+    h, w, c = INPAINT_IMAGE
+    rng = np.random.default_rng(seed)
+    i, j = np.mgrid[0:h, 0:w].astype(float) / max(h, w)
+    img = np.empty((h, w, c))
+    for ch in range(c):
+        f1, f2 = rng.uniform(1.5, 4.0, 2)
+        p1, p2 = rng.uniform(0, 2 * np.pi, 2)
+        img[..., ch] = 110 + 70 * np.cos(f1 * np.pi * i + p1) * np.sin(f2 * np.pi * j + p2)
+    for _ in range(6):
+        r0, c0 = rng.integers(0, 2 * h // 3), rng.integers(0, 2 * w // 3)
+        img[r0:r0 + rng.integers(h // 16, h // 3), c0:c0 + rng.integers(w // 16, w // 3)] = \
+            rng.uniform(20, 235, c)
+    tri = i + j < 0.35
+    img[tri] = (160 - 200 * (i + j)[tri])[:, None] * rng.uniform(0.6, 1.0, c)
+    return np.clip(img + rng.normal(scale=2.0, size=img.shape), 0, 255)
+
+
+def inpaint_data():
+    """The inpainting input as the image apps make it (evo_tpu/apps/
+    images.py:77-93): the clean image, a copy with INPAINT_MISSING of its
+    entries NaN (MCAR, seed 0), its overlapping patches [N, D] centred on
+    each patch's mean over its observed pixels, that DC [N, 1], and the
+    patch geometry."""
+    clean = synthetic_image(0)
+    corrupted = clean.copy()
+    corrupted[np.random.default_rng(0).random(clean.shape) < INPAINT_MISSING] = np.nan
+    ovp = MultiDimOverlappingPatches(corrupted, INPAINT_PATCH, INPAINT_PATCH, 1)
+    Y = ovp.get().T
+    with np.errstate(invalid="ignore"):
+        dc = np.nanmean(Y, axis=1, keepdims=True)
+    dc = np.where(np.isfinite(dc), dc, 0.0)
+    return clean, corrupted, Y - dc, dc, ovp
+
+
+def inpaint_setup(kind, inp):
+    """A set-up function for ``drive``: ES3C (learning W, pies and sigma2,
+    as the image apps do for incomplete data) or EBSC on the inpainting
+    data, one block, x = x_infr, initial states and Theta^0 from seed 0.
+    F need not rise here: on incomplete data evo_tpu's sigma update adds
+    sum_d times the old sigma^2 (evo_tpu/models/bsc.py:530-532, sssc.py:
+    715-718), and evo_tpu's own F falls over the first epochs on such data
+    too, so the paths are held to finite values only."""
+    _, _, Y, _, _ = inp
+
+    def setup(device):
+        N, D = Y.shape
+        if kind == "sssc":
+            model = SSSC(D=D, H=INPAINT_H, to_learn=("W", "pies", "sigma2"), device=device)
+        else:
+            model = BSC(D=D, H=INPAINT_H, device=device)
+        data = make_data(Y, n_blocks=1, device=device)
+        cfg, estate = init_states(N=N, S=INPAINT_S, H=INPAINT_H, no_parents=INPAINT_PARENTS,
+                                  no_children=INPAINT_CHILDREN, no_generations=1, n_blocks=1,
+                                  seed=0, device=device)
+        return model, data, cfg, estate, model.standard_init(data, seed=0, y_host=Y)
+
+    return setup
+
+
+def merge_and_psnr(inp, y_rec):
+    """Mean and median merge of the reconstruction on the card with the DC
+    added back, their PSNR over the whole image and over the missing
+    pixels, and the merge's time."""
+    clean, corrupted, _, dc, ovp = inp
+    dm = DeviceMerger(ovp, clean, data_range=255.0, device=DEVICE)
+    dc_t = torch.as_tensor(dc, dtype=torch.float32, device=DEVICE)
+    out = dm(y_rec, dc_t)
+    miss = torch.as_tensor(np.isnan(corrupted), device=DEVICE)
+    clean_t = torch.as_tensor(clean, dtype=torch.float32, device=DEVICE)
+    ms = cuda_ms(lambda: dm(y_rec, dc_t), reps=3, warm=1)
+    res = {}
+    for key in ("mean", "median"):
+        img = out[key]
+        if tuple(img.shape) != clean.shape or not bool(torch.isfinite(img).all()):
+            raise AssertionError(f"the {key} merge is malformed")
+        mse = torch.mean((clean_t - img)[miss] ** 2)
+        res[key] = (float(out[f"psnr_{key}"]), float(10 * torch.log10(255.0**2 / mse)))
+    say(f"merge on the card: {ms:.2f} ms; PSNR mean merge {res['mean'][0]:.3f} dB (missing "
+        f"pixels {res['mean'][1]:.3f} dB), median merge {res['median'][0]:.3f} dB (missing "
+        f"pixels {res['median'][1]:.3f} dB)")
+
+
 def sssc_setup(conf):
     """A set-up function for ``drive``: an ES3C configuration (n_blocks,
     B, D, H, S, parents, children, slab noise) with data made on the host
@@ -522,14 +830,14 @@ def _device_us(evt):
     return 0.0
 
 
-def profile_epoch(model, params, estate, data, gen, cfg, median_ms):
+def profile_epoch(model, params, estate, data, gen, cfg, median_ms, do_reconstruction):
     """One more epoch under torch.profiler (device activity only, to keep
     its host overhead small): its wall time, the summed time of its kernels
     (one stream, so they do not overlap), the idle share of its wall time,
     and the heaviest kernels by device time."""
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        model.em_step(params, estate, data, gen, cfg)
+        model.em_step(params, estate, data, gen, cfg, do_reconstruction=do_reconstruction)
         torch.cuda.synchronize()
         wall = 1e3 * (time.perf_counter() - t)
     evts = [e for e in prof.key_averages() if _device_us(e) > 0]
@@ -542,12 +850,15 @@ def profile_epoch(model, params, estate, data, gen, cfg, median_ms):
         say(f"  {_device_us(e) / 1e3:8.2f} ms {e.count:5d}x {e.key[:70]}")
 
 
-def drive(setup, launches, expect, profile=False):
+def drive(setup, launches, expect, profile=False, do_reconstruction=False,
+          timed_epochs=TIMED_EPOCHS, rising=True):
     """Drive one configuration on the card through its public entry points:
-    set-up, then 1 warm-up and 3 timed EM epochs with the launch counts set
-    to 0 just before and checked just after, F finite and rising, the state
-    and parameters well formed; with ``profile`` one more epoch under
-    torch.profiler.  Returns the launch counts of the epochs."""
+    set-up, then 1 warm-up and ``timed_epochs`` timed EM epochs with the
+    launch counts set to 0 just before and checked just after, F finite
+    (and with ``rising`` higher after the epochs than after the first), the
+    state, parameters and any reconstruction well formed; with ``profile``
+    one more epoch under torch.profiler.  Returns the launch counts of the
+    epochs and the last reconstruction (or None)."""
     t0 = time.perf_counter()
     model, data, cfg, estate, params = setup(DEVICE)
     gen = torch.Generator(device=DEVICE).manual_seed(0)
@@ -556,13 +867,15 @@ def drive(setup, launches, expect, profile=False):
 
     launches.reset()
     Fs, ms = [], []
-    for e in range(WARM_EPOCHS + TIMED_EPOCHS):
+    n_epochs = WARM_EPOCHS + timed_epochs
+    for e in range(n_epochs):
         t = time.perf_counter()
-        params, estate, stats, _ = model.em_step(params, estate, data, gen, cfg)
+        params, estate, stats, y_rec = model.em_step(params, estate, data, gen, cfg,
+                                                     do_reconstruction=do_reconstruction)
         torch.cuda.synchronize()
         ms.append(1e3 * (time.perf_counter() - t))
         Fs.append(float(stats.F))
-    counts = launches.expect(**{k: v * (WARM_EPOCHS + TIMED_EPOCHS) for k, v in expect.items()})
+    counts = launches.expect(**{k: v * n_epochs for k, v in expect.items()})
     timed = ms[WARM_EPOCHS:]
     say(f"F per epoch {[round(f, 4) for f in Fs]}")
     say(f"ms per epoch {[round(m, 1) for m in ms]} (first is warm-up); "
@@ -574,15 +887,20 @@ def drive(setup, launches, expect, profile=False):
         f"psi_renorm {float(stats.guard_psi_renorm):.4g}")
     if not all(np.isfinite(Fs)):
         raise AssertionError(f"non-finite F: {Fs}")
-    if not Fs[-1] > Fs[0]:
+    if rising and not Fs[-1] > Fs[0]:
         raise AssertionError(f"F did not rise over the epochs: {Fs}")
     shape = (data.n_blocks, data.y.shape[1], cfg.S, cfg.H)
     if tuple(estate.ss.shape) != shape or not all(
             bool(torch.isfinite(v).all()) for v in vars(params).values()):
         raise AssertionError("malformed state or parameters after the epochs")
+    if do_reconstruction and not (
+            y_rec.shape == data.y.shape and bool(torch.isfinite(y_rec).all())
+            and torch.equal(y_rec[data.x], data.y[data.x])):
+        raise AssertionError("malformed reconstruction: not finite, or observed entries changed")
     if profile:
-        profile_epoch(model, params, estate, data, gen, cfg, sorted(timed)[len(timed) // 2])
-    return counts
+        profile_epoch(model, params, estate, data, gen, cfg, sorted(timed)[len(timed) // 2],
+                      do_reconstruction)
+    return counts, y_rec
 
 
 class Launches:
@@ -590,7 +908,8 @@ class Launches:
 
     def __init__(self):
         self.fns = {"lpj": bsc_lpj, "suffstat": bsc_suffstat, "sssc_lpj": sssc_lpj,
-                    "sssc_suffstat": sssc_suffstat}
+                    "sssc_suffstat": sssc_suffstat, "sssc_lpj_masked": sssc_lpj_masked,
+                    "sssc_suffstat_masked": sssc_suffstat_masked}
 
     def reset(self):
         for f in self.fns.values():
@@ -636,28 +955,44 @@ def main():
     with Phase("kernels"):
         rows = check_kernels(DEVICE)
         rows.update(check_sssc_kernels(DEVICE, torch.Generator().manual_seed(1)))
+        rows.update(check_masked_kernels(DEVICE, torch.Generator().manual_seed(2)))
     with Phase("exact"):
         exact_epoch(launches)
     with Phase("main"):
-        counts = drive(primary_setup, launches, dict(lpj=2 * N_BLOCKS, suffstat=N_BLOCKS),
-                       profile=True)
+        counts, _ = drive(primary_setup, launches, dict(lpj=2 * N_BLOCKS, suffstat=N_BLOCKS),
+                          profile=True)
     with Phase("exact_sssc"):
         exact_sssc(launches)
     with Phase("sssc_fl"):
-        fl = drive(sssc_setup(SSSC_FL), launches, dict(sssc_lpj=2, sssc_suffstat=1))
+        fl, _ = drive(sssc_setup(SSSC_FL), launches, dict(sssc_lpj=2, sssc_suffstat=1))
     with Phase("sssc_primary"):
-        prim = drive(sssc_setup(SSSC_PRIMARY), launches,
-                     dict(sssc_lpj=2 * SSSC_PRIMARY[0], sssc_suffstat=SSSC_PRIMARY[0]),
-                     profile=True)
+        prim, _ = drive(sssc_setup(SSSC_PRIMARY), launches,
+                        dict(sssc_lpj=2 * SSSC_PRIMARY[0], sssc_suffstat=SSSC_PRIMARY[0]),
+                        profile=True)
+    with Phase("exact_sssc_incomplete"):
+        exact_incomplete("sssc", launches)
+    with Phase("exact_bsc_incomplete"):
+        exact_incomplete("bsc", launches)
+    inp = inpaint_data()
+    with Phase("sssc_inpaint"):
+        inpaint, y_rec = drive(inpaint_setup("sssc", inp), launches,
+                               dict(sssc_lpj_masked=2, sssc_suffstat_masked=1), profile=True,
+                               do_reconstruction=True, rising=False)
+        merge_and_psnr(inp, y_rec)
+    with Phase("bsc_inpaint"):
+        bsc_inp, _ = drive(inpaint_setup("bsc", inp), launches, dict(suffstat=1),
+                           do_reconstruction=True, timed_epochs=2, rising=False)
 
     kernels = [
         dict(name="bsc_lpj", route="cuda", source="evo_tpu_torch/csrc/bsc_lpj.cu",
              replaces="evo_tpu/ops/pallas_lpj.py:97", launches=counts["lpj"],
              library_ms=None, **rows["bsc_lpj"]),
+        # launches: the EBSC main path and bsc_inpaint together
         dict(name="bsc_suffstat", route="cuda", source="evo_tpu_torch/csrc/bsc_suffstat.cu",
-             replaces="evo_tpu/ops/pallas_suffstat.py:60", launches=counts["suffstat"],
-             library_ms=None, **rows["bsc_suffstat"]),
-        # launches: the two ES3C paths' runs together
+             replaces="evo_tpu/ops/pallas_suffstat.py:60",
+             launches=counts["suffstat"] + bsc_inp["suffstat"], library_ms=None,
+             **rows["bsc_suffstat"]),
+        # launches: the two complete-data ES3C paths' runs together
         dict(name="sssc_lpj", route="cuda", source="evo_tpu_torch/csrc/sssc_lpj.cu",
              replaces="evo_tpu/ops/pallas_sssc.py:676",
              launches=fl["sssc_lpj"] + prim["sssc_lpj"], library_ms=None, **rows["sssc_lpj"]),
@@ -665,6 +1000,13 @@ def main():
              replaces="evo_tpu/ops/pallas_sssc.py:1015",
              launches=fl["sssc_suffstat"] + prim["sssc_suffstat"], library_ms=None,
              **rows["sssc_suffstat"]),
+        dict(name="sssc_lpj_masked", route="cuda", source="evo_tpu_torch/csrc/sssc_lpj_masked.cu",
+             replaces="evo_tpu/ops/pallas_sssc.py:606", launches=inpaint["sssc_lpj_masked"],
+             library_ms=None, **rows["sssc_lpj_masked"]),
+        dict(name="sssc_suffstat_masked", route="cuda",
+             source="evo_tpu_torch/csrc/sssc_suffstat_masked.cu",
+             replaces="evo_tpu/ops/pallas_sssc.py:939", launches=inpaint["sssc_suffstat_masked"],
+             library_ms=None, **rows["sssc_suffstat_masked"]),
     ]
     say(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

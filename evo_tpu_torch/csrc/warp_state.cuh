@@ -1,9 +1,10 @@
-// Warp helpers shared by the SSSC kernels (sssc_lpj.cu, sssc_suffstat.cu),
-// where one warp works on one binary state.
+// Warp helpers shared by the SSSC kernels (sssc_lpj.cu, sssc_lpj_masked.cu,
+// sssc_suffstat.cuh), where one warp works on one binary state.
 
 #pragma once
 
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace {
@@ -31,5 +32,37 @@ __device__ __forceinline__ int active_set(const int8_t* row, int H, int* idx, in
   __syncwarp();
   return n;
 }
+
+// In-place inverse of the n x n matrix A (row-major, in the warp's shared
+// memory) by unpivoted Gauss-Jordan: the same function as the TPU kernels'
+// Schur recursion wherever every leading block is invertible.  Returns
+// log|det A|, the sum of log|pivot|, on every lane.  A zero pivot leaves
+// non-finite entries.  The plain version, ops/linalg.py:pd_inverse_logdet,
+// takes the same steps.
+__device__ float gauss_jordan_inverse(float* A, int n, int lane) {
+  float ld = 0.f;
+  __syncwarp();
+  for (int k = 0; k < n; ++k) {
+    const float piv = A[k * n + k];
+    const float ip = 1.f / piv;
+    ld += logf(fabsf(piv));
+    __syncwarp();
+    for (int j = lane; j < n; j += 32)
+      if (j != k) A[k * n + j] *= ip;
+    __syncwarp();
+    for (int e = lane; e < n * n; e += 32) {
+      const int i = e / n, j = e - (e / n) * n;
+      if (i != k && j != k) A[e] -= A[i * n + k] * A[k * n + j];
+    }
+    __syncwarp();
+    for (int i = lane; i < n; i += 32)
+      if (i != k) A[i * n + k] *= -ip;
+    if (lane == 0) A[k * n + k] = ip;
+    __syncwarp();
+  }
+  return ld;
+}
+
+__device__ __forceinline__ float finite_or_zero(float x) { return isfinite(x) ? x : 0.f; }
 
 }  // namespace

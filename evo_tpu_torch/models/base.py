@@ -1,9 +1,8 @@
 """Data container, blocking and per-epoch statistics.
 
 Counterpart: evo_tpu/models/base.py (``Data``, ``pad_rows``, ``make_data``,
-the complete-data branch of ``block_gram``, ``StepStats``).  Every
-per-datapoint tensor is blocked [nb, B, ...]; ``BSC.em_step`` loops over the
-nb blocks.
+``block_gram``, ``StepStats``).  Every per-datapoint tensor is blocked
+[nb, B, ...]; each model's ``em_step`` loops over the nb blocks.
 """
 
 from __future__ import annotations
@@ -76,24 +75,62 @@ def make_data(y: np.ndarray, x: Optional[np.ndarray] = None, n_blocks: int = 1,
                 row_valid=blk(row_valid), incomplete=incomplete)
 
 
-def check_supported(data: Data, cfg=None, do_reconstruction=False):
-    """Raise NotImplementedError for what the port's models do not run
-    yet: incomplete data, reconstruction, packed and permanent states, and
-    the merges other than unification."""
-    if data.incomplete or do_reconstruction:
-        raise NotImplementedError(
-            "incomplete data and reconstruction are not ported yet")
-    if cfg is not None and (cfg.packed_states or cfg.allzero or cfg.background
-                            or not cfg.unification or cfg.swap_merge):
+def check_em_step(data: Data, cfg, do_reconstruction: bool):
+    """Raise what an ``em_step`` cannot run: ValueError for incomplete data
+    without reconstruction, as evo_tpu raises it (its M-step consumes the
+    reconstruction: evo_tpu/models/bsc.py:341-348, sssc.py:348-354), and
+    NotImplementedError for what the port does not run yet: packed and
+    permanent states and the merges other than unification."""
+    if data.incomplete and not do_reconstruction:
+        raise ValueError(
+            "incomplete data requires do_reconstruction=True: the M-step "
+            "consumes the reconstructed data for its W update")
+    if cfg.packed_states or cfg.allzero or cfg.background or not cfg.unification \
+            or cfg.swap_merge:
         raise NotImplementedError(
             "packed states, permanent states and the non-default merge "
             "modes are not ported yet")
 
 
-def block_gram(W: torch.Tensor, y_b: torch.Tensor):
-    """Complete-data lpj precomputation: (G = W^T W [H, H], Wty = y W [B, H],
-    y2 = ||y||^2 [B]).  True f32: the package turns TF32 off."""
-    return W.T @ W, y_b @ W, (y_b * y_b).sum(dim=-1)
+def check_single_process():
+    """Raise NotImplementedError under a torch.distributed group of more
+    than one process: Theta^0 from the global sums of all processes
+    (evo_tpu's ``global_init_stats``) is not ported yet."""
+    if torch.distributed.is_available() and torch.distributed.is_initialized() \
+            and torch.distributed.get_world_size() > 1:
+        raise NotImplementedError("multi-process initialization is not ported yet")
+
+
+def host_data(data: Data, D: int, y_host=None):
+    """(y [N, D], m [N, D]) on the host as the models' ``standard_init``
+    reads them (evo_tpu/models/bsc.py:110-122): from ``y_host`` with NaN
+    marking the missing entries (then zeroed), else the valid rows of the
+    data and of x_infr."""
+    if y_host is not None:
+        y_raw = np.asarray(y_host).reshape(-1, D)
+        m = ~np.isnan(y_raw)
+        return np.where(m, y_raw, 0.0), m
+    valid = data.row_valid.reshape(-1).cpu().numpy()
+    return (data.y.reshape(-1, D).cpu().numpy()[valid],
+            data.x_infr.reshape(-1, D).cpu().numpy()[valid])
+
+
+def block_gram(W: torch.Tensor, y_b: torch.Tensor, xinf_b: torch.Tensor,
+               incomplete: bool):
+    """The lpj precomputation of one block, (G, Wty, y2):
+
+        complete:   G = W^T W                 shared [H, H]
+        incomplete: G_n = W^T diag(m_n) W     per datapoint [B, H, H]
+        Wty_n = W^T (m_n * y_n) [B, H],   y2_n = ||m_n * y_n||^2 [B]
+
+    with m_n = xinf_b[n] (missing entries of y_b are already 0).  True f32:
+    the package turns TF32 off.  The caller builds G_n one block at a time."""
+    if not incomplete:
+        return W.T @ W, y_b @ W, (y_b * y_b).sum(dim=-1)
+    m = xinf_b.to(W.dtype)
+    G = (m[:, :, None] * W).transpose(1, 2) @ W
+    ym = y_b * m
+    return G, ym @ W, (ym * ym).sum(dim=-1)
 
 
 @dataclasses.dataclass

@@ -12,9 +12,18 @@ An epoch (``em_step``) is a Python loop over the data blocks.  In each
 block the lpj of K^(n) and of each generation's children go through the
 ``bsc_lpj`` kernel (which also emits the dedup keys), the merged states'
 sufficient statistics through the ``bsc_suffstat`` kernel, and the rest is
-plain PyTorch on the same device.  Complete data only in this version:
-incomplete data, reconstruction, packed states, permanent states and the
-other merge modes raise NotImplementedError.
+plain PyTorch on the same device.
+
+Incomplete data (NaN entries in ``make_data``) need
+``do_reconstruction=True``, as in evo_tpu.  Their lpj runs under the
+per-datapoint Gram G_n = W^T diag(m_n) W and is plain PyTorch on every
+device (``lpj_masked_gram``): evo_tpu has no TPU kernel for it either
+(``pallas_lpj_applicable`` is False for incomplete data), so nothing falls
+back here.  ``bsc_suffstat`` does not read the mask and stays the kernel.
+The reconstruction y_rec = where(x, y, sum_s r W s) is returned blocked
+[nb, B, D]; on incomplete data it feeds the W update and the sigma residual.
+Packed states, permanent states and the other merge modes raise
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -27,7 +36,14 @@ import numpy as np
 import torch
 
 from evo_tpu_torch._device import resolve_device
-from evo_tpu_torch.models.base import Data, StepStats, block_gram, check_supported
+from evo_tpu_torch.models.base import (
+    Data,
+    StepStats,
+    block_gram,
+    check_em_step,
+    check_single_process,
+    host_data,
+)
 from evo_tpu_torch.ops.bsc_lpj import bsc_lpj
 from evo_tpu_torch.ops.bsc_suffstat import bsc_suffstat
 from evo_tpu_torch.ops.linalg import equilibrated_pd_inverse
@@ -54,6 +70,18 @@ class BSCParams:
     pies: torch.Tensor  # [H], per-unit pi_h, diagnostic only
 
 
+def lpj_masked_gram(ss, Wty, y2, G, pre1, pil_bar):
+    """lpj [B, K] of states ss [B, K, H] under per-datapoint Grams G
+    [B, H, H] (incomplete data): pre1 (y2 - 2 s.Wty + s^T G_n s) + pil_bar
+    |s|, the per-datapoint form of evo_tpu's ``BSC._lpj_one``
+    (evo_tpu/models/bsc.py:222-229).  Plain PyTorch on every device, as in
+    evo_tpu, which has no TPU kernel for incomplete data."""
+    sf = ss.to(Wty.dtype)
+    sGs = ((sf @ G) * sf).sum(dim=-1)
+    sWty = (sf @ Wty[:, :, None])[..., 0]
+    return pre1 * (y2[:, None] - 2.0 * sWty + sGs) + pil_bar * sf.sum(dim=-1)
+
+
 @dataclasses.dataclass(frozen=True)
 class BSC:
     """Static model configuration.  ``device`` None means the CUDA card."""
@@ -68,41 +96,32 @@ class BSC:
 
     # ------------------------------------------------------------------ init
 
-    def standard_init(self, data: Data, seed: int = 0, W_init=None, pi_init=None,
-                      sigma_init=None, y_host=None) -> BSCParams:
-        """Noisy-data-mean init (reference _models.py:206-283), drawn with
-        NumPy from ``seed`` exactly as evo_tpu draws it.  Pass ``y_host``
-        (the flat [N, D] host data) to skip the device-to-host copy."""
-        check_supported(data)
-        if y_host is not None:
-            y = np.asarray(y_host).reshape(-1, self.D)
+    def standard_init(self, data: Data, seed: int = 0, y_host=None) -> BSCParams:
+        """Noisy-data-mean init with pi = 1/H (reference _models.py:206-283),
+        drawn with NumPy from ``seed`` exactly as evo_tpu draws it.  Pass
+        ``y_host`` (the flat [N, D] host data, NaN marking missing entries)
+        to skip the device-to-host copy.  On incomplete data the mean is
+        normalized by N and sigma taken over the observed entries (evo_tpu
+        bsc.py:125-135)."""
+        check_single_process()
+        y, m = host_data(data, self.D, y_host)
+        N = y.shape[0]
+        if data.incomplete:
+            y_mean = (y * m).sum(0) / N
+            sigma = np.sqrt((((y - y_mean) * m) ** 2).sum() / m.sum())
         else:
-            y = data.y.reshape(-1, self.D).cpu().numpy()
-            y = y[data.row_valid.reshape(-1).cpu().numpy()]
-        y_mean = y.mean(0)
-        if sigma_init is None:
-            sigma_init = np.sqrt(((y - y_mean) ** 2).mean(0).sum() / self.D)
-            if not sigma_init > 0.0:
-                raise ValueError("the data have zero variance")
-        rng = np.random.default_rng(seed)
-        if isinstance(W_init, str) or W_init is None:
-            if W_init == "random_uniform":
-                W = rng.random((self.D, self.H))
-            elif W_init == "normal":
-                W = rng.normal(0, 5, (self.D, self.H))
-            elif W_init == "data_mean":
-                W = np.tile(y_mean[:, None], (1, self.H))
-            else:
-                W = y_mean[:, None] + rng.normal(scale=sigma_init / 4.0,
-                                                 size=(self.D, self.H))
-        else:
-            W = np.asarray(W_init)
-        pi = 1.0 / self.H if pi_init is None else pi_init
+            y_mean = y.mean(0)
+            sigma = np.sqrt(((y - y_mean) ** 2).mean(0).sum() / self.D)
+        if not sigma > 0.0:
+            raise ValueError("the data have zero variance")
+        W = y_mean[:, None] + np.random.default_rng(seed).normal(
+            scale=sigma / 4.0, size=(self.D, self.H))
+        pi = 1.0 / self.H
         dt, dev = data.y.dtype, self.device
         return BSCParams(
             W=torch.as_tensor(np.asarray(W), dtype=dt, device=dev),
             pi=torch.as_tensor(pi, dtype=dt, device=dev),
-            sigma=torch.as_tensor(sigma_init, dtype=dt, device=dev),
+            sigma=torch.as_tensor(sigma, dtype=dt, device=dev),
             pies=torch.full((self.H,), pi, dtype=dt, device=dev),
         )
 
@@ -132,20 +151,24 @@ class BSC:
     # ------------------------------------------------------------ precompute
 
     def _precompute(self, p: BSCParams, data: Data) -> dict:
-        """State-independent terms (reference bsc.py:100-125), complete data."""
+        """State-independent terms (reference bsc.py:100-125); on incomplete
+        data ljc, sum_d and sum_d_y2 count the observed entries (evo_tpu
+        bsc.py:205-219)."""
         dt = p.W.dtype
         N = data.row_valid.sum().to(dt)
         log2pis = torch.log(2 * math.pi * p.sigma * p.sigma)
         vmask = data.row_valid[..., None].to(dt)
-        return dict(
-            pre1=-0.5 / (p.sigma * p.sigma),
-            pil_bar=torch.log(p.pi / (1.0 - p.pi)),
-            piH=p.pi * self.H,
-            ljc=self.H * torch.log(1.0 - p.pi) - self.D / 2 * log2pis,
-            N=N,
-            sum_d=N * self.D,
-            sum_d_y2=(data.y * data.y * vmask).sum(),
-        )
+        y2 = data.y * data.y * vmask
+        if data.incomplete:
+            m = data.x_infr.to(dt)
+            sum_d = (m * vmask).sum()
+            ljc = self.H * torch.log(1.0 - p.pi) - log2pis * sum_d / N / 2
+            y2 = y2 * m
+        else:
+            sum_d = N * self.D
+            ljc = self.H * torch.log(1.0 - p.pi) - self.D / 2 * log2pis
+        return dict(pre1=-0.5 / (p.sigma * p.sigma), pil_bar=torch.log(p.pi / (1.0 - p.pi)),
+                    piH=p.pi * self.H, ljc=ljc, N=N, sum_d=sum_d, sum_d_y2=y2.sum())
 
     # ---------------------------------------------------------------- E-step
 
@@ -153,13 +176,18 @@ class BSC:
                      cfg: EAConfig):
         """Evolutionary E-step of one block [B, ...]: lpj of the current
         K^(n), children by ``evolve_states_block``, merge by ``vary_Kn``.
+        A per-datapoint Gram G_b [B, H, H] (incomplete data) takes
+        ``lpj_masked_gram``, and the EA then computes its own dedup keys.
         Returns (ss2, lpj2, n_uni [B], n_sub [B], reset counts [3])."""
-        emit = not cfg.exact
+        args = (Wty_b, y2_b, G_b, pre["pre1"], pre["pil_bar"])
 
         def lpj_block(states):
-            out = bsc_lpj(states, Wty_b, y2_b, G_b, pre["pre1"], pre["pil_bar"],
-                          emit_keys=emit)
-            lpj, keys = out if emit else (out, None)
+            if G_b.dim() == 3:
+                lpj, keys = lpj_masked_gram(states, *args), None
+            elif cfg.exact:
+                lpj, keys = bsc_lpj(states, *args), None
+            else:
+                lpj, keys = bsc_lpj(states, *args, emit_keys=True)
             lpj, counts = reset_lpj(lpj, valid=valid_b)
             return lpj, keys, torch.stack(counts)
 
@@ -177,13 +205,18 @@ class BSC:
     def em_step(self, params: BSCParams, estate: EState, data: Data,
                 generator: torch.Generator, cfg: EAConfig,
                 do_reconstruction: bool = False):
-        """One EM epoch: E-step and M-step over all blocks.
+        """One EM epoch: E-step, optional reconstruction and M-step over all
+        blocks.
 
-        Returns (new_params, new_estate, stats, None).  As in evo_tpu, F is
-        the free energy of the updated K^(n) under the old parameters, and
-        the M-step consumes the merged states and lpjs.  ``generator`` (on
-        the data's device) drives every random draw of the EA."""
-        check_supported(data, cfg, do_reconstruction)
+        Returns (new_params, new_estate, stats, y_rec [nb, B, D] or None).
+        As in evo_tpu, F is the free energy of the updated K^(n) under the
+        old parameters, and the M-step consumes the merged states and lpjs.
+        On incomplete data the W update reads the reconstruction and the
+        sigma residual is taken from it over x_infr, exactly as the
+        reference does (evo_tpu bsc.py:425-452), also where x != x_infr.
+        ``generator`` (on the data's device) drives every random draw of
+        the EA."""
+        check_em_step(data, cfg, do_reconstruction)
         params = self.check_params(params)
         pre = self._precompute(params, data)
         dt, dev = params.W.dtype, params.W.device
@@ -198,25 +231,37 @@ class BSC:
         resets = torch.zeros((3,), dtype=torch.int64, device=dev)
         ss_all = torch.empty_like(estate.ss)
         lpj_all = torch.empty_like(estate.lpj)
+        y_rec_all = torch.empty_like(data.y) if do_reconstruction else None
         floor = 0.5 * eps_lpj(dt)
 
         for i in range(data.n_blocks):
             y_b, valid_b = data.y[i], data.row_valid[i]
-            G_b, Wty_b, y2_b = block_gram(W, y_b)
+            G_b, Wty_b, y2_b = block_gram(W, y_b, data.x_infr[i], data.incomplete)
             ss2, lpj2, n_uni, n_sub, counts = self._estep_block(
                 generator, estate.ss[i], G_b, Wty_b, y2_b, valid_b, pre, cfg)
             vf = valid_b.to(dt)
             Fsum += (shifted_logsumexp(lpj2) * vf).sum()
             rs = posterior_weights(lpj2) * vf[:, None]
             rho, s_abs, Wq_b = bsc_suffstat(ss2, rs)
-            Wp += rho.T @ y_b
             Wq += Wq_b
             pies += rho.sum(dim=0)
-            # sum_s r ||y - W s||^2 recovered from the lpj; reset-clamped
-            # values would poison it, so they are masked out (their
-            # responsibility is ~0 anyway)
-            resid2 = torch.clamp((lpj2 - pre["pil_bar"] * s_abs) / pre["pre1"], min=0.0)
-            sig += torch.where(lpj2 > floor, rs * resid2, 0.0).sum()
+            if do_reconstruction:
+                # posterior-predictive mean (reference _models.py:614-665)
+                means = ss2.to(dt) @ W.T  # [B, S, D]
+                y_rec_all[i] = torch.where(data.x[i], y_b, (rs[:, None, :] @ means)[:, 0])
+            if data.incomplete:
+                # sum_s r ||m (y_rec - W s)||^2 from the reconstruction
+                y_rec = y_rec_all[i]
+                dy = (y_rec[:, None, :] - means) * data.x_infr[i][:, None, :]
+                sig += (rs * (dy * dy).sum(dim=-1)).sum()
+                Wp += rho.T @ y_rec
+            else:
+                # sum_s r ||y - W s||^2 recovered from the lpj; reset-clamped
+                # values would poison it, so they are masked out (their
+                # responsibility is ~0 anyway)
+                resid2 = torch.clamp((lpj2 - pre["pil_bar"] * s_abs) / pre["pre1"], min=0.0)
+                sig += torch.where(lpj2 > floor, rs * resid2, 0.0).sum()
+                Wp += rho.T @ y_b
             nuni += (n_uni * valid_b).sum()
             nsub += (n_sub * valid_b).sum()
             resets += counts
@@ -224,7 +269,7 @@ class BSC:
             lpj_all[i] = lpj2
 
         acc = dict(Wp=Wp, Wq=Wq, pies=pies, sigma=sig)
-        new_params, guard = self._m_step_finalize(params, acc, pre)
+        new_params, guard = self._m_step_finalize(params, acc, pre, data.incomplete)
         N = pre["N"]
         stats = StepStats(
             F=pre["ljc"] + Fsum / N, S_nunique=nuni / N, S_sub=nsub / N,
@@ -232,15 +277,17 @@ class BSC:
             n_guard_sigma_floor=guard, n_guard_mus_freeze=torch.zeros_like(guard),
             n_guard_psi_freeze=torch.zeros_like(guard),
             guard_psi_renorm=torch.zeros((), dtype=torch.float32, device=dev))
-        return new_params, EState(ss=ss_all, lpj=lpj_all), stats, None
+        return new_params, EState(ss=ss_all, lpj=lpj_all), stats, y_rec_all
 
     # ---------------------------------------------------------------- M-step
 
-    def _m_step_finalize(self, params: BSCParams, acc: dict, pre: dict):
+    def _m_step_finalize(self, params: BSCParams, acc: dict, pre: dict, incomplete: bool):
         """Closed-form updates from the epoch's accumulators (reference
         bsc.py:225-277) with evo_tpu's guards: an equilibrated PD solve with
         a relative ridge in f32 for W, and a floor on sigma at 1e-3 of the
-        data RMS.  Returns (params, sigma-floor flag)."""
+        data RMS.  On incomplete data the sigma update adds sum_d times the
+        old sigma^2 (evo_tpu bsc.py:530-532).  Returns (params, sigma-floor
+        flag)."""
         N, D, H = pre["N"], self.D, self.H
         new = dict(W=params.W, pi=params.pi, sigma=params.sigma, pies=params.pies)
         if "W" in self.to_learn:
@@ -251,7 +298,8 @@ class BSC:
             new["pi"] = new["pies"].sum() / H
         guard = torch.zeros((), dtype=torch.int64, device=params.W.device)
         if "sigma" in self.to_learn:
-            sigma_new = torch.sqrt(acc["sigma"] / N / D)
+            corr = pre["sum_d"] * params.sigma**2 if incomplete else 0.0
+            sigma_new = torch.sqrt((acc["sigma"] + corr) / N / D)
             floor = 1e-3 * torch.sqrt(pre["sum_d_y2"] / torch.clamp(pre["sum_d"], min=1.0))
             new["sigma"] = torch.maximum(sigma_new, floor)
             guard = (sigma_new < floor).to(torch.int64)
@@ -262,23 +310,21 @@ class BSC:
     def exact_free_energy(self, params: BSCParams, data: Data) -> torch.Tensor:
         """Exact log-likelihood by enumerating all 2^H states (small H): the
         correctness oracle."""
-        check_supported(data)
         params = self.check_params(params)
         pre = self._precompute(params, data)
         sm = torch.from_numpy(full_state_matrix(self.H).view(np.int8)).to(params.W.device)
         Fsum = torch.zeros((), dtype=params.W.dtype, device=params.W.device)
         for i in range(data.n_blocks):
             y_b = data.y[i]
-            G_b, Wty_b, y2_b = block_gram(params.W, y_b)
+            G_b, Wty_b, y2_b = block_gram(params.W, y_b, data.x_infr[i], data.incomplete)
             states = sm.expand(y_b.shape[0], -1, -1).contiguous()
-            lpj, _ = reset_lpj(bsc_lpj(states, Wty_b, y2_b, G_b, pre["pre1"],
-                                       pre["pil_bar"]))
+            lpj_fn = lpj_masked_gram if data.incomplete else bsc_lpj
+            lpj, _ = reset_lpj(lpj_fn(states, Wty_b, y2_b, G_b, pre["pre1"], pre["pil_bar"]))
             Fsum += (shifted_logsumexp(lpj) * data.row_valid[i].to(lpj.dtype)).sum()
         return pre["ljc"] + Fsum / pre["N"]
 
     def free_energy(self, params: BSCParams, estate: EState, data: Data) -> torch.Tensor:
         """Truncated free energy from the stored lpj."""
-        check_supported(data)
         pre = self._precompute(self.check_params(params), data)
         lpj = estate.lpj.reshape(-1, estate.lpj.shape[-1])
         return free_energy_from_lpj(lpj, pre["ljc"], data.row_valid.reshape(-1))

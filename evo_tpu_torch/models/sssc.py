@@ -16,10 +16,17 @@ evo_tpu's kernel path does), and the rest is plain PyTorch on the same
 device.  evo_tpu's XLA path stashes the candidate solves instead
 (``STASH_MAX_H``); that is an XLA strategy and is not carried over.
 
-Complete data only in this version, H <= 128 (the kernels' envelope; evo_tpu
-runs wider models on its XLA path): incomplete data, reconstruction, packed
-states, permanent states, the other merge modes, H > 128 and multi-process
-initialization raise NotImplementedError.
+Incomplete data (NaN entries in ``make_data``) run under the per-datapoint
+Gram G_n = W^T diag(m_n) W, built one block at a time, through the masked
+kernels (``sssc_lpj_masked``, ``sssc_suffstat_masked``), and need
+``do_reconstruction=True`` as in evo_tpu; the reconstruction
+y_rec = where(x, y, <sz> W^T) is returned blocked [nb, B, D] and feeds the
+W update.
+
+Envelope: H <= 128 on complete data and H <= 64 on incomplete data (the
+kernels' envelope; evo_tpu runs wider models on its XLA path).  Packed
+states, permanent states, the other merge modes, wider models and
+multi-process initialization raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -32,7 +39,14 @@ import numpy as np
 import torch
 
 from evo_tpu_torch._device import resolve_device
-from evo_tpu_torch.models.base import Data, StepStats, block_gram, check_supported
+from evo_tpu_torch.models.base import (
+    Data,
+    StepStats,
+    block_gram,
+    check_em_step,
+    check_single_process,
+    host_data,
+)
 from evo_tpu_torch.ops.linalg import equilibrated_pd_inverse
 from evo_tpu_torch.ops.numerics import (
     free_energy_from_lpj,
@@ -40,7 +54,7 @@ from evo_tpu_torch.ops.numerics import (
     reset_lpj,
     shifted_logsumexp,
 )
-from evo_tpu_torch.ops.sssc_lpj import MAX_H, sssc_lpj
+from evo_tpu_torch.ops.sssc_lpj import MASKED_MAX_H, MAX_H, sssc_lpj
 from evo_tpu_torch.ops.sssc_suffstat import sssc_suffstat
 from evo_tpu_torch.variational.config import EAConfig
 from evo_tpu_torch.variational.evolve import evolve_states_block
@@ -74,11 +88,17 @@ class SSSC:
     def __post_init__(self):
         object.__setattr__(self, "device", resolve_device(self.device))
 
-    def _check_supported(self, data: Data, cfg: EAConfig = None, do_reconstruction=False):
-        check_supported(data, cfg, do_reconstruction)
+    def _check_width(self, data: Data):
+        """The kernels' envelope: H <= 128, and H <= 64 on incomplete data
+        (evo_tpu's masked kernels stop at Hp <= 64 and its XLA path runs
+        wider models; the port has no such path yet)."""
         if self.H > MAX_H:
             raise NotImplementedError(
                 f"H={self.H}: the port's SSSC kernels cover H <= {MAX_H}")
+        if data.incomplete and self.H > MASKED_MAX_H:
+            raise NotImplementedError(
+                f"H={self.H}: the port's masked SSSC kernels (incomplete data) "
+                f"cover H <= {MASKED_MAX_H}")
 
     # ------------------------------------------------------------------ init
 
@@ -87,19 +107,21 @@ class SSSC:
         noisy W and data-variance sigma2 (reference sssc.py:104-197), drawn
         with NumPy from ``seed`` in evo_tpu's order (pies, mus, W), so Theta^0
         is the same as evo_tpu's.  Pass ``y_host`` (the flat [N, D] host
-        data) to skip the device-to-host copy."""
-        self._check_supported(data)
-        if torch.distributed.is_available() and torch.distributed.is_initialized() \
-                and torch.distributed.get_world_size() > 1:
-            raise NotImplementedError("multi-process initialization is not ported yet")
-        if y_host is not None:
-            y = np.asarray(y_host).reshape(-1, self.D)
+        data, NaN marking missing entries) to skip the device-to-host copy.
+        On incomplete data the mean is normalized by N and sigma2 taken over
+        the observed entries (reference sssc.py:146-153)."""
+        self._check_width(data)
+        check_single_process()
+        y, m = host_data(data, self.D, y_host)
+        N = y.shape[0]
+        if data.incomplete:
+            y_mean = (y * m).sum(0) / N
+            sigma2 = (((y - y_mean) * m) ** 2).sum() / m.sum() + 0.001
         else:
-            y = data.y.reshape(-1, self.D).cpu().numpy()
-            y = y[data.row_valid.reshape(-1).cpu().numpy()]
-        # mean per-dimension variance, np.cov's ddof=1 (sssc.py:150-160)
-        sigma2 = float(np.var(y, axis=0, ddof=1).mean()) + 0.001
-        return self._finish_init(data, y.mean(0), sigma2, seed)
+            y_mean = y.mean(0)
+            # mean per-dimension variance, np.cov's ddof=1 (sssc.py:150-160)
+            sigma2 = float(np.var(y, axis=0, ddof=1).mean()) + 0.001
+        return self._finish_init(data, y_mean, sigma2, seed)
 
     def _finish_init(self, data: Data, y_mean, sigma2, seed) -> SSSCParams:
         rng = np.random.default_rng(seed)
@@ -148,17 +170,21 @@ class SSSC:
     # ------------------------------------------------------------ precompute
 
     def _precompute(self, p: SSSCParams, data: Data) -> dict:
-        """State-independent terms (reference sssc.py:329-366), complete data."""
+        """State-independent terms (reference sssc.py:329-366); on incomplete
+        data ljc counts the observed entries (evo_tpu sssc.py:249-253)."""
         dt = p.W.dtype
-        N = data.row_valid.sum().to(dt)
+        valid = data.row_valid
+        N = valid.sum().to(dt)
         log1mp = torch.log(1.0 - p.pies).sum()
-        return dict(
-            sigma2_inv=1.0 / p.sigma2,
-            pil_bar=torch.log(p.pies / (1.0 - p.pies)),
-            piH=p.pies.sum(),
-            ljc=log1mp - self.D / 2 * math.log(2 * math.pi) - 0.5 * self.D * torch.log(p.sigma2),
-            N=N,
-        )
+        if data.incomplete:
+            sum_d = (data.x_infr.to(dt) * valid[..., None].to(dt)).sum()
+            ljc = log1mp + (-math.log(2 * math.pi) - torch.log(p.sigma2)) * sum_d / N / 2
+        else:
+            sum_d = N * self.D
+            ljc = (log1mp - self.D / 2 * math.log(2 * math.pi)
+                   - 0.5 * self.D * torch.log(p.sigma2))
+        return dict(sigma2_inv=1.0 / p.sigma2, pil_bar=torch.log(p.pies / (1.0 - p.pies)),
+                    piH=p.pies.sum(), ljc=ljc, N=N, sum_d=sum_d)
 
     # ---------------------------------------------------------------- E-step
 
@@ -186,14 +212,18 @@ class SSSC:
 
     def em_step(self, params: SSSCParams, estate: EState, data: Data,
                 generator: torch.Generator, cfg: EAConfig, do_reconstruction: bool = False):
-        """One EM epoch: E-step and M-step over all blocks (reference
-        SSSC.EM_step, sssc.py:420-813).
+        """One EM epoch: E-step, optional reconstruction and M-step over all
+        blocks (reference SSSC.EM_step, sssc.py:420-813).
 
-        Returns (new_params, new_estate, stats, None).  As in evo_tpu, F is
-        the free energy of the updated K^(n) under the old parameters, and
-        the M-step consumes the merged states.  ``generator`` (on the data's
-        device) drives every random draw of the EA."""
-        self._check_supported(data, cfg, do_reconstruction)
+        Returns (new_params, new_estate, stats, y_rec [nb, B, D] or None).
+        As in evo_tpu, F is the free energy of the updated K^(n) under the
+        old parameters, and the M-step consumes the merged states; on
+        incomplete data its W update reads the reconstruction, and its
+        sigma2 update the observed entries of the original y.
+        ``generator`` (on the data's device) drives every random draw of
+        the EA."""
+        check_em_step(data, cfg, do_reconstruction)
+        self._check_width(data)
         params = self.check_params(params)
         pre = self._precompute(params, data)
         dt, dev, H = params.W.dtype, params.W.device, self.H
@@ -202,17 +232,19 @@ class SSSC:
         acc.update(xpt_s=torch.zeros((H,), dtype=dt, device=dev),
                    xpt_sz=torch.zeros((H,), dtype=dt, device=dev),
                    Wp=torch.zeros((self.D, H), dtype=dt, device=dev),
-                   y2sum=torch.zeros((), dtype=dt, device=dev))
+                   y2sum=torch.zeros((), dtype=dt, device=dev),
+                   trWszszW=torch.zeros((), dtype=dt, device=dev))
         Fsum = torch.zeros((), dtype=dt, device=dev)
         nuni = torch.zeros((), dtype=torch.int64, device=dev)
         nsub = torch.zeros((), dtype=torch.int64, device=dev)
         resets = torch.zeros((3,), dtype=torch.int64, device=dev)
         ss_all = torch.empty_like(estate.ss)
         lpj_all = torch.empty_like(estate.lpj)
+        y_rec_all = torch.empty_like(data.y) if do_reconstruction else None
 
         for i in range(data.n_blocks):
             y_b, valid_b = data.y[i], data.row_valid[i]
-            G_b, Wty_b, y2_b = block_gram(params.W, y_b)
+            G_b, Wty_b, y2_b = block_gram(params.W, y_b, data.x_infr[i], data.incomplete)
             ss2, lpj2, n_uni, n_sub, counts = self._estep_block(
                 generator, estate.ss[i], G_b, Wty_b, y2_b, valid_b, params, pre, cfg)
             vf = valid_b.to(dt)
@@ -220,7 +252,14 @@ class SSSC:
             rs = posterior_weights(lpj2) * vf[:, None]
             xpt_sz, xpt_s, xpt_ss, xpt_szsz, s_sz, sz_sz = sssc_suffstat(
                 ss2, rs, Wty_b, G_b, params.Psi, params.mus, pre["sigma2_inv"])
-            acc["Wp"] += y_b.T @ xpt_sz
+            y_m = y_b
+            if do_reconstruction:
+                est = xpt_sz @ params.W.T
+                y_rec_all[i] = torch.where(data.x[i], y_b, est)
+                if data.incomplete:
+                    y_m = y_rec_all[i]
+                    acc["trWszszW"] += (data.x_infr[i] * est * est).sum()
+            acc["Wp"] += y_m.T @ xpt_sz
             acc["xpt_s"] += xpt_s.sum(0)
             acc["xpt_sz"] += xpt_sz.sum(0)
             acc["xpt_ss"] += xpt_ss
@@ -234,24 +273,26 @@ class SSSC:
             ss_all[i] = ss2
             lpj_all[i] = lpj2
 
-        new_params, guards = self._m_step_finalize(params, acc, pre)
+        new_params, guards = self._m_step_finalize(params, acc, pre, data.incomplete)
         N = pre["N"]
         zero = torch.zeros((), dtype=torch.int64, device=dev)
         stats = StepStats(
             F=pre["ljc"] + Fsum / N, S_nunique=nuni / N, S_sub=nsub / N,
             n_reset_nan=resets[0], n_reset_small=resets[1], n_reset_inf=resets[2],
             n_guard_sigma_floor=zero, **guards)
-        return new_params, EState(ss=ss_all, lpj=lpj_all), stats, None
+        return new_params, EState(ss=ss_all, lpj=lpj_all), stats, y_rec_all
 
     # ---------------------------------------------------------------- M-step
 
-    def _m_step_finalize(self, params: SSSCParams, acc: dict, pre: dict):
+    def _m_step_finalize(self, params: SSSCParams, acc: dict, pre: dict, incomplete: bool):
         """Closed-form updates (reference sssc.py:687-770) with evo_tpu's
         guards (evo_tpu/models/sssc.py:637-749): W from an equilibrated PD
         solve, mus and Psi frozen for units whose activation mass
         collapsed, Psi's elementwise reference form, the sigma2 shortcut
-        over the posterior-mean reconstructions, and in f32 the gauge fix
-        diag(Psi) = 1.  Returns (params, guard fields of StepStats)."""
+        over the posterior-mean reconstructions (on incomplete data over
+        their observed entries, plus sum_d times the old sigma2), and in
+        f32 the gauge fix diag(Psi) = 1.  Returns (params, guard fields of
+        StepStats)."""
         N, D, H = pre["N"], self.D, self.H
         dt, dev = params.W.dtype, params.W.device
         f64 = dt == torch.float64
@@ -283,7 +324,10 @@ class SSSC:
                 guards["n_guard_psi_freeze"] = (~alive).sum()
             new["Psi"] = Psi_upd
         if "sigma2" in self.to_learn:
-            s2 = acc["y2sum"] - torch.trace(acc["sz_sz_outer"] @ (new["W"].T @ new["W"]))
+            if incomplete:
+                s2 = acc["y2sum"] - acc["trWszszW"] + pre["sum_d"] * params.sigma2
+            else:
+                s2 = acc["y2sum"] - torch.trace(acc["sz_sz_outer"] @ (new["W"].T @ new["W"]))
             new["sigma2"] = torch.clamp(s2 / N / D + EPS_SIGMA2, min=EPS_SIGMA2)
 
         if {"W", "mus", "Psi"} <= set(self.to_learn) and not f64:
@@ -299,14 +343,14 @@ class SSSC:
     def exact_free_energy(self, params: SSSCParams, data: Data) -> torch.Tensor:
         """Exact log-likelihood by enumerating all 2^H states (small H): the
         correctness oracle (reference _models.py:334-451)."""
-        self._check_supported(data)
+        self._check_width(data)
         params = self.check_params(params)
         pre = self._precompute(params, data)
         sm = torch.from_numpy(full_state_matrix(self.H).view(np.int8)).to(params.W.device)
         Fsum = torch.zeros((), dtype=params.W.dtype, device=params.W.device)
         for i in range(data.n_blocks):
             y_b = data.y[i]
-            G_b, Wty_b, y2_b = block_gram(params.W, y_b)
+            G_b, Wty_b, y2_b = block_gram(params.W, y_b, data.x_infr[i], data.incomplete)
             states = sm.expand(y_b.shape[0], -1, -1).contiguous()
             lpj, _ = sssc_lpj(states, Wty_b, y2_b, G_b, params.Psi, params.mus,
                               pre["pil_bar"], pre["sigma2_inv"])
@@ -316,7 +360,6 @@ class SSSC:
 
     def free_energy(self, params: SSSCParams, estate: EState, data: Data) -> torch.Tensor:
         """Truncated free energy from the stored lpj."""
-        self._check_supported(data)
         pre = self._precompute(self.check_params(params), data)
         lpj = estate.lpj.reshape(-1, estate.lpj.shape[-1])
         return free_energy_from_lpj(lpj, pre["ljc"], data.row_valid.reshape(-1))

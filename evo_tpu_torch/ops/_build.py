@@ -41,6 +41,12 @@ SIGNATURES = {
     # chunk, stream
     "evo_sssc_suffstat": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                           _P],
+    # ss, wty, y2, G [B, H, H], Psi, mus, pil_bar, s2inv, lpj, bad, B, K, H, stream
+    "evo_sssc_lpj_masked": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # ss, rs, wty, G [B, H, H], Psi, mus, s2inv, xpt_sz, xpt_s, out, partial, B, S,
+    # H, chunk, stream
+    "evo_sssc_suffstat_masked": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                 _P],
 }
 
 

@@ -19,10 +19,17 @@ For 64 < H <= 128 a state with more than 16 active units (``overflow_cap``)
 has kappa = 0 and no lambda, but its r still counts in xpt_s and xpt_ss, as
 in the TPU kernel's popcount buckets.  H > 128 raises.
 
-``sssc_suffstat`` runs the kernel on a CUDA tensor and the plain version
-``sssc_suffstat_plain`` on a CPU tensor; nothing falls back from one to the
-other.  The kernel sums the [H, H] outputs in a fixed order, so they are
-the same from run to run.
+Incomplete data (counterpart: pallas_sssc.py:_suffstat_pallas_masked; the
+CUDA kernel is csrc/sssc_suffstat_masked.cu, ``sssc_suffstat_masked``):
+``sssc_suffstat`` dispatches to it when G is a per-datapoint Gram [B, H, H],
+as evo_tpu dispatches on G.ndim == 3.  The same solves and outputs under
+G_n, for H <= 64 (``MASKED_MAX_H``), where every state is exact.
+
+``sssc_suffstat`` and ``sssc_suffstat_masked`` run the kernel on a CUDA
+tensor and the plain version ``sssc_suffstat_plain`` (which takes either
+Gram) on a CPU tensor; nothing falls back from one to the other.  The
+kernels sum the [H, H] outputs in a fixed order, so they are the same from
+run to run.
 """
 
 from __future__ import annotations
@@ -32,10 +39,13 @@ import torch
 from evo_tpu_torch.ops import _build
 from evo_tpu_torch.ops.linalg import pd_inverse_logdet
 from evo_tpu_torch.ops.sssc_lpj import (
+    MASKED_MAX_H,
     active_groups,
     check_f32,
+    check_states,
     device_scalar,
     gather_sub,
+    gram_sub,
     overflow_cap,
 )
 
@@ -47,68 +57,96 @@ def _finite(x: torch.Tensor) -> torch.Tensor:
 
 
 def sssc_suffstat_plain(ss, rs, Wty, G, Psi, mus, s2inv):
-    """Plain PyTorch version of the kernel: (xpt_sz, xpt_s, xpt_ss,
-    xpt_szsz, s_sz_outer, sz_sz_outer), the states grouped by |s| and
-    inverted by the kernel's unpivoted Gauss-Jordan steps, so that a zero
-    pivot leaves the same non-finite entries (then 0) here as there."""
+    """Plain PyTorch version of both kernels (G [H, H] shared or [B, H, H]
+    per datapoint): (xpt_sz, xpt_s, xpt_ss, xpt_szsz, s_sz_outer,
+    sz_sz_outer), the states grouped by |s| and inverted by the kernels'
+    unpivoted Gauss-Jordan steps, so that a zero pivot leaves the same
+    non-finite entries (then 0) here as there."""
     B, S, H = ss.shape
     cap = overflow_cap(H)
     s2inv = torch.as_tensor(s2inv, dtype=Wty.dtype, device=Wty.device)
     rows_ss = ss.reshape(B * S, H)
     r = rs.reshape(B * S)
     kappa = torch.zeros((B * S, H), dtype=Wty.dtype, device=Wty.device)
-    szsz = torch.zeros(H * H, dtype=Wty.dtype, device=Wty.device)
+    # the lambda shares go into H^2 bins by a scatter-add, in f64: at the
+    # inpainting path's 3M states, f32 adds per bin came out 3.1e-5 of the
+    # largest value off an f64 sum (NVIDIA H100 80GB HBM3, 700 W)
+    szsz = torch.zeros(H * H, dtype=torch.float64, device=Wty.device)
     for n, rows, A in active_groups(rows_ss):
         if cap and n > cap:
             continue
         b = rows // S
         a = mus[A]
-        G_AA = gather_sub(G, A)
+        G_AA = gram_sub(G, b, A)
         u = Wty[b[:, None], A] - (G_AA @ a[..., None])[..., 0]
         Pinv = pd_inverse_logdet(gather_sub(Psi, A))[0]
         lam = pd_inverse_logdet(s2inv * G_AA + Pinv)[0]
         kappa[rows[:, None], A] = _finite(s2inv * (lam @ u[..., None])[..., 0] + a)
         flat = (A[:, :, None] * H + A[:, None, :]).flatten()
-        szsz.index_add_(0, flat, (r[rows, None, None] * _finite(lam)).flatten())
+        szsz.index_add_(0, flat, (r[rows, None, None] * _finite(lam)).flatten().double())
     sf = rows_ss.to(Wty.dtype)
     w_s, w_k = r[:, None] * sf, r[:, None] * kappa
     xpt_s = w_s.reshape(B, S, H).sum(1)
     xpt_sz = w_k.reshape(B, S, H).sum(1)
-    return (xpt_sz, xpt_s, w_s.T @ sf, szsz.reshape(H, H) + w_k.T @ kappa,
+    return (xpt_sz, xpt_s, w_s.T @ sf, szsz.reshape(H, H).to(Wty.dtype) + w_k.T @ kappa,
             xpt_s.T @ xpt_sz, xpt_sz.T @ xpt_sz)
 
 
 def sssc_suffstat(ss, rs, Wty, G, Psi, mus, s2inv):
     """ss: int8 0/1 [B, S, H] merged states; rs: f32 [B, S]
-    responsibilities (zero on padding rows); Wty f32 [B, H]; G, Psi f32
+    responsibilities (zero on padding rows); Wty f32 [B, H]; G f32 [H, H],
+    or [B, H, H] per datapoint (then ``sssc_suffstat_masked``); Psi f32
     [H, H]; mus f32 [H]; s2inv a float or 0-dim tensor.  Returns (xpt_sz
     [B, H], xpt_s [B, H], xpt_ss, xpt_szsz, s_sz_outer, sz_sz_outer
     [H, H]), all f32."""
+    if G.dim() == 3:
+        return sssc_suffstat_masked(ss, rs, Wty, G, Psi, mus, s2inv)
     if ss.device.type == "cpu":
         return sssc_suffstat_plain(ss, rs, Wty, G, Psi, mus, s2inv)
+    out = _launch("evo_sssc_suffstat", False, ss, rs, Wty, G, Psi, mus, s2inv)
+    sssc_suffstat.launches += 1
+    return out
+
+
+sssc_suffstat.launches = 0
+
+
+def sssc_suffstat_masked(ss, rs, Wty, G, Psi, mus, s2inv):
+    """``sssc_suffstat`` under a per-datapoint Gram G f32 [B, H, H]
+    (incomplete data), H <= 64."""
+    H = ss.shape[-1]
+    if H > MASKED_MAX_H:
+        raise ValueError(f"masked SSSC kernels cover H <= {MASKED_MAX_H}, got H={H}")
+    if ss.device.type == "cpu":
+        return sssc_suffstat_plain(ss, rs, Wty, G, Psi, mus, s2inv)
+    out = _launch("evo_sssc_suffstat_masked", True, ss, rs, Wty, G, Psi, mus, s2inv)
+    sssc_suffstat_masked.launches += 1
+    return out
+
+
+sssc_suffstat_masked.launches = 0
+
+
+def _launch(entry, masked, ss, rs, Wty, G, Psi, mus, s2inv):
+    """Check the inputs and launch one of the two kernels; the shared-Gram
+    one also takes the overflow cap."""
     B, S, H = ss.shape
     dev = ss.device
-    if ss.dtype != torch.int8 or not ss.is_contiguous():
-        raise TypeError(f"sssc_suffstat: states must be contiguous int8, got {ss.dtype}")
-    check_f32("sssc_suffstat", dev, ("rs", rs, (B, S)), ("Wty", Wty, (B, H)),
-              ("G", G, (H, H)), ("Psi", Psi, (H, H)), ("mus", mus, (H,)))
-    cap = overflow_cap(H)
-    if B * S * H == 0:
-        raise ValueError(f"sssc_suffstat: empty shape {tuple(ss.shape)}")
+    check_states(entry, ss)
+    g_shape = (B, H, H) if masked else (H, H)
+    check_f32(entry, dev, ("rs", rs, (B, S)), ("Wty", Wty, (B, H)), ("G", G, g_shape),
+              ("Psi", Psi, (H, H)), ("mus", mus, (H,)))
     n_chunks = -(-B // CHUNK)
     scal = device_scalar(s2inv, dev)
     xpt_sz = torch.empty((B, H), dtype=torch.float32, device=dev)
     xpt_s = torch.empty((B, H), dtype=torch.float32, device=dev)
     out = torch.empty((4, H, H), dtype=torch.float32, device=dev)
     partial = torch.empty((n_chunks, 4, H, H), dtype=torch.float32, device=dev)
-    fn = _build.entry("evo_sssc_suffstat")
-    err = fn(ss.data_ptr(), rs.data_ptr(), Wty.data_ptr(), G.data_ptr(), Psi.data_ptr(),
-             mus.data_ptr(), scal.data_ptr(), xpt_sz.data_ptr(), xpt_s.data_ptr(),
-             out.data_ptr(), partial.data_ptr(), B, S, H, cap, CHUNK,
-             torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(err, "sssc_suffstat")
-    sssc_suffstat.launches += 1
+    args = [ss.data_ptr(), rs.data_ptr(), Wty.data_ptr(), G.data_ptr(), Psi.data_ptr(),
+            mus.data_ptr(), scal.data_ptr(), xpt_sz.data_ptr(), xpt_s.data_ptr(),
+            out.data_ptr(), partial.data_ptr(), B, S, H]
+    if not masked:
+        args.append(overflow_cap(H))
+    err = _build.entry(entry)(*args, CHUNK, torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, entry)
     return xpt_sz, xpt_s, out[0], out[1], out[2], out[3]
-
-
-sssc_suffstat.launches = 0

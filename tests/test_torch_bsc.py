@@ -8,6 +8,8 @@ different generators and agree only in distribution: the bars run must
 converge to the generating model's F as evo_tpu's does.
 """
 
+import ast
+import dataclasses
 import os
 import subprocess
 import sys
@@ -24,7 +26,7 @@ from evo_tpu.models.bsc import BSC as JBSC, BSCParams as JParams
 from evo_tpu.utils.bars import generate_bars_dict
 from evo_tpu.variational.state_init import draw_initial_states as j_draw
 from evo_tpu.variational.state_init import init_states as j_init_states
-from evo_tpu_torch import BSC, convert, init_states, make_data
+from evo_tpu_torch import BSC, SSSC, convert, init_states, make_data
 from evo_tpu_torch.variational.state_init import draw_initial_states as t_draw
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -132,6 +134,45 @@ def test_convert_round_trip():
     np.testing.assert_array_equal(mine.row_valid.numpy(), np.asarray(jdata.row_valid))
 
 
+@pytest.mark.parametrize("missing", [False, True])
+@pytest.mark.parametrize("y_host", [False, True])
+def test_standard_init_matches_evo_tpu(missing, y_host):
+    """The default Theta^0 (noisy data mean, pi = 1/H, the data's sigma) on
+    complete and on incomplete data, from the blocked data or from the host
+    copy, equals evo_tpu's bit for bit."""
+    D, _, Y = _bars(H=6, N=90)
+    if missing:
+        Y = np.where(np.random.default_rng(1).random(Y.shape) < 0.2, np.nan, Y)
+    host = Y if y_host else None
+    want = JBSC(D=D, H=6).standard_init(j_make_data(Y, n_blocks=3), seed=2, y_host=host)
+    got = BSC(D=D, H=6, device="cpu").standard_init(make_data(Y, n_blocks=3, device="cpu"),
+                                                    seed=2, y_host=host)
+    for f in ("W", "pi", "sigma", "pies"):
+        np.testing.assert_array_equal(getattr(got, f).numpy(), np.asarray(getattr(want, f)))
+
+
+def test_check_params_matches_evo_tpu():
+    rng = np.random.default_rng(4)
+    p = JParams(W=jnp.asarray(rng.normal(size=(7, 5)), jnp.float32),
+                pi=jnp.asarray(1.5, jnp.float32), sigma=jnp.asarray(-2.0, jnp.float32),
+                pies=jnp.asarray([0.0, 0.3, 1.0, 0.5, 2e-6], jnp.float32))
+    want = JBSC(D=7, H=5).check_params(p)
+    got = BSC(D=7, H=5, device="cpu").check_params(convert.params_from_numpy(p, "cpu"))
+    for f in ("W", "pi", "sigma", "pies"):
+        np.testing.assert_array_equal(getattr(got, f).numpy(), np.asarray(getattr(want, f)))
+
+
+@pytest.mark.parametrize("model_cls", [BSC, SSSC])
+def test_standard_init_raises_under_several_processes(model_cls, monkeypatch):
+    """Theta^0 from global sums over processes is not ported: both models
+    refuse to initialize from the local rows alone."""
+    monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
+    monkeypatch.setattr(torch.distributed, "get_world_size", lambda *a, **k: 2)
+    data = make_data(np.random.default_rng(0).normal(size=(8, 4)), device="cpu")
+    with pytest.raises(NotImplementedError, match="multi-process"):
+        model_cls(D=4, H=3, device="cpu").standard_init(data)
+
+
 def test_entry_points_need_a_card_unless_cpu_is_asked(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     Y = np.zeros((4, 4), np.float32)
@@ -142,17 +183,28 @@ def test_entry_points_need_a_card_unless_cpu_is_asked(monkeypatch):
 
 
 def test_unported_paths_raise():
+    """Incomplete data without reconstruction raise evo_tpu's ValueError;
+    packed and permanent states and the other merges are not ported."""
     Y = np.ones((8, 4), np.float32)
+    full = make_data(Y, device="cpu")
     Y[0, 0] = np.nan
     data = make_data(Y, device="cpu")
     model = BSC(D=4, H=3, device="cpu")
     cfg, estate = init_states(N=8, S=2, H=3, no_parents=2, device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="do_reconstruction"):
         model.em_step(None, estate, data, torch.Generator(), cfg)
+    with pytest.raises(ValueError, match="do_reconstruction"):
+        JBSC(D=4, H=3).em_step(None, None, j_make_data(Y), jax.random.key(0), None)
+    for change in (dict(packed_states=True), dict(allzero=True), dict(background=True),
+                   dict(swap_merge=True), dict(unification=False)):
+        with pytest.raises(NotImplementedError):
+            model.em_step(None, estate, full, torch.Generator(),
+                          dataclasses.replace(cfg, **change), do_reconstruction=True)
 
 
 def test_package_imports_without_jax_or_evo_tpu():
-    """Every evo_tpu_torch module imports with jax and evo_tpu blocked."""
+    """Every evo_tpu_torch module, and chip_smoke.py, imports with jax and
+    evo_tpu blocked, and chip_smoke.py's source names neither."""
     code = r"""
 import importlib, pkgutil, sys
 
@@ -168,6 +220,7 @@ import evo_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(evo_tpu_torch.__path__, "evo_tpu_torch.")]
 for n in names:
     importlib.import_module(n)
+importlib.import_module("chip_smoke")
 bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "evo_tpu")]
 assert not bad, bad
 print(len(names))
@@ -177,3 +230,10 @@ print(len(names))
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.strip()) >= 15
     assert evo_tpu_torch.__version__
+    with open(os.path.join(REPO, "chip_smoke.py")) as f:
+        tree = ast.parse(f.read())
+    roots = {a.name.split(".")[0] for node in ast.walk(tree) if isinstance(node, ast.Import)
+             for a in node.names}
+    roots |= {node.module.split(".")[0] for node in ast.walk(tree)
+              if isinstance(node, ast.ImportFrom) and node.module}
+    assert "evo_tpu_torch" in roots and not roots & {"jax", "jaxlib", "evo_tpu"}, roots

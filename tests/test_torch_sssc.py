@@ -177,25 +177,31 @@ def test_sssc_convert_round_trip():
 
 
 def test_unported_paths_raise():
+    """Incomplete data without reconstruction raise evo_tpu's ValueError;
+    packed and permanent states, the other merges, H > 128 and incomplete
+    data at H > 64 (evo_tpu's XLA path, not ported) raise
+    NotImplementedError."""
     Y = np.ones((8, 4), np.float32)
     model = SSSC(D=4, H=3, device="cpu")
     full = make_data(Y, device="cpu")
     cfg, estate = init_states(N=8, S=2, H=3, no_parents=2, device="cpu")
     Y[0, 0] = np.nan
-    for data, c, kw in ((make_data(Y, device="cpu"), cfg, {}),
-                        (full, cfg, dict(do_reconstruction=True))):
-        with pytest.raises(NotImplementedError):
-            model.em_step(None, estate, data, torch.Generator(), c, **kw)
+    incomplete = make_data(Y, device="cpu")
+    with pytest.raises(ValueError, match="do_reconstruction"):
+        model.em_step(None, estate, incomplete, torch.Generator(), cfg)
+    with pytest.raises(ValueError, match="do_reconstruction"):
+        JSSSC(D=4, H=3).em_step(None, None, j_make_data(Y), jax.random.key(0), None)
     for change in (dict(packed_states=True), dict(allzero=True), dict(swap_merge=True),
                    dict(unification=False)):
         with pytest.raises(NotImplementedError):
             model.em_step(None, estate, full, torch.Generator(),
                           dataclasses.replace(cfg, **change))
-    wide = SSSC(D=4, H=129, device="cpu")
-    _, wstate = init_states(N=8, S=2, H=129, no_parents=2, device="cpu")
-    wcfg = dataclasses.replace(cfg, H=129)
-    with pytest.raises(NotImplementedError):
-        wide.em_step(None, wstate, full, torch.Generator(), wcfg)
+    for H, data in ((129, full), (65, incomplete)):
+        wide = SSSC(D=4, H=H, device="cpu")
+        _, wstate = init_states(N=8, S=2, H=H, no_parents=2, device="cpu")
+        wcfg = dataclasses.replace(cfg, H=H)
+        with pytest.raises(NotImplementedError):
+            wide.em_step(None, wstate, data, torch.Generator(), wcfg, do_reconstruction=True)
 
 
 def test_entry_point_needs_a_card_unless_cpu_is_asked(monkeypatch):
