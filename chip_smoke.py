@@ -35,9 +35,21 @@ Phases, one line each with its seconds:
                more under torch.profiler, then the mean and median merge of
                the last reconstruction on the card and their PSNR
  11. bsc_inpaint   EBSC (H = 32) on the same data: 1 warm-up, 2 timed epochs
+ 12. exact_packed  phase 4 with packed states, and with the permanent
+               all-zero state, each on the card against the CPU
+ 13. main_packed   phase 5 with packed states (EAConfig.packed_states, from
+               init_states(packed_states=True)): the packed-input kernels'
+               launch counts checked, F per epoch equal to phase 5's, one
+               more epoch under torch.profiler
+ 14. eopts     short EA runs of both models at bars size with the other
+               E-step options (background with swap_merge, allzero with the
+               whole-set merge, packed states with the whole-set merge that
+               rejects nothing), each checked well formed
 The kernels phase also holds the ES3C kernels, the masked ones (incomplete
-data) included, against their plain versions at those paths' shapes.  Then
-a JSON line with the kernels' numbers and, last, the result line.
+data) included, against their plain versions at those paths' shapes, and
+the packed-input EBSC kernels against their plain versions and, bit for
+bit, against the int8 kernels on the same states.  Then a JSON line with
+the kernels' numbers and, last, the result line.
 
 Any failed check raises and the script exits non-zero; it also exits
 non-zero without a result when no CUDA card is present.  The whole run is
@@ -46,6 +58,7 @@ torch and numpy (so it fails at once outside the repository), and starts no
 process but nvcc and nvidia-smi.
 """
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -59,6 +72,7 @@ import torch
 from evo_tpu_torch import BSC, SSSC, SSSCParams, init_states, make_data
 from evo_tpu_torch.models.base import block_gram
 from evo_tpu_torch.ops import _build
+from evo_tpu_torch.ops.bitpack import n_bytes_lane, pack_bits_lane, unpack_bits_lane
 from evo_tpu_torch.ops.bsc_lpj import bsc_lpj, bsc_lpj_plain, key_words
 from evo_tpu_torch.ops.bsc_suffstat import bsc_suffstat, bsc_suffstat_plain
 from evo_tpu_torch.ops.sssc_lpj import (
@@ -136,8 +150,9 @@ def peaks(name):
 
 
 def kernel_name(mangled):
-    """The innermost name of an Itanium-mangled kernel, with a bool template
-    argument shown: _ZN..14bsc_lpj_kernelILb1EEEv.. -> bsc_lpj_kernel<true>."""
+    """The innermost name of an Itanium-mangled kernel, with its bool
+    template arguments shown: _ZN..14bsc_lpj_kernelILb1ELb0EEEv.. ->
+    bsc_lpj_kernel<true, false>."""
     if not mangled.startswith("_ZN"):
         return mangled
     i, name = 3, mangled
@@ -147,7 +162,13 @@ def kernel_name(mangled):
             j += 1
         n = int(mangled[i:j])
         name, i = mangled[j:j + n], j + n
-    return name + {"ILb1E": "<true>", "ILb0E": "<false>"}.get(mangled[i:i + 5], "")
+    args = []
+    if mangled[i:i + 1] == "I":
+        i += 1
+        while mangled[i:i + 2] == "Lb" and mangled[i + 3:i + 4] == "E":
+            args.append("true" if mangled[i + 2] == "1" else "false")
+            i += 4
+    return name + (f"<{', '.join(args)}>" if args else "")
 
 
 def cuda_ms(fn, reps=10, warm=2):
@@ -180,18 +201,31 @@ def binary_ops(ss):
     return float((n * n + 2 * n).sum()), float(n.sum())
 
 
-def lpj_bound(ss, emit):
-    """bound_ms of bsc_lpj on these states: the adds of binary_ops plus 6
-    per row for the epilogue; keys need n bit inserts per row and, for the
-    hash (H > 64), 2 multiply-adds per halfword and stream plus 2 fmix32 of
-    6 ops; bytes are each input read once and each output written once."""
+def lpj_bound(ss, emit, packed=False):
+    """bound_ms of bsc_lpj on these states (int8, or with ``packed`` their
+    lane-major bytes): the adds of binary_ops plus 6 per row for the
+    epilogue; keys need n bit inserts per row and, for the hash (H > 64), 2
+    multiply-adds per halfword and stream plus 2 fmix32 of 6 ops; bytes are
+    each input read once and each output written once."""
     Bk, K, Hk = ss.shape
     rows = Bk * K
     adds, bits = binary_ops(ss)
     W = key_words(Hk)
     int_ops = (bits + (rows * (4 * 2 * -(-Hk // 32) + 12) if Hk > 64 else 0)) if emit else 0
-    nbytes = rows * Hk + 4 * (Bk * Hk + Bk + Hk * Hk + rows + (rows * W if emit else 0))
+    state_bytes = rows * (n_bytes_lane(Hk) if packed else Hk)
+    nbytes = state_bytes + 4 * (Bk * Hk + Bk + Hk * Hk + rows + (rows * W if emit else 0))
     return bound_ms(adds + 6 * rows, int_ops, nbytes)
+
+
+def suffstat_bound(ss, packed=False):
+    """bound_ms of bsc_suffstat on these states (int8, or with ``packed``
+    their bytes): Wq adds rs to the n^2 active pairs of each row, rho and
+    sabs take n each; bytes are each input read once and each output
+    written once."""
+    Bk, S_, Hk = ss.shape
+    state_bytes = Bk * S_ * (n_bytes_lane(Hk) if packed else Hk)
+    nbytes = state_bytes + 4 * (Bk * S_ + Bk * Hk + Bk * S_ + Hk * Hk)
+    return bound_ms(binary_ops(ss)[0], 0, nbytes)
 
 
 def dense_f32_ms(flops):
@@ -264,14 +298,83 @@ def check_kernels(device):
         errs.append(err.max().item())
     ms = cuda_ms(lambda: bsc_suffstat(ss, rs))
     plain = cuda_ms(lambda: bsc_suffstat_plain(ss, rs))
-    # Wq adds rs to the n^2 active pairs of each row, rho and sabs take n each
-    nbytes = B * S * H + 4 * (B * S + B * H + B * S + H * H)
-    bnd, by = bound_ms(binary_ops(ss)[0], 0, nbytes)
+    bnd, by = suffstat_bound(ss)
     dense = dense_f32_ms(2.0 * B * S * H * H + 2.0 * B * S * H)
     say(f"bsc_suffstat H={H} S={S}: max_abs_err {max(errs):.3g} {ms:.4f} ms, "
         f"plain {plain:.4f} ms, bound {bnd:.4f} ms ({by}), dense f32 {dense:.4f} ms")
     rows["bsc_suffstat"] = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain,
                                 bound_ms=bnd, bound_by=by)
+    return rows
+
+
+def check_packed_kernels(device, gen):
+    """The packed-input modes of both EBSC kernels on lane-major packed
+    states: bit for bit against the int8 kernels on the same states (lpj,
+    keys, rho, sabs and Wq: only the staging differs), and against their
+    plain versions within the int8 rows' tolerances, at the main path's
+    blocks (H = 256: K = 64 and the 10 children; S = 64), at a ragged
+    H = 100 (13 bytes a row, 4 pad bits) and at H <= 64 (exact key words),
+    the lpj in both emit_keys settings."""
+    rows = {}
+    for Hk, K in ((256, 64), (256, 10), (100, 64), (64, 64), (40, 64)):
+        args = lpj_inputs(B, K, Hk, gen, device)
+        pk = pack_bits_lane(args[0])
+        if not torch.equal(unpack_bits_lane(pk, Hk).to(torch.int8), args[0]):
+            raise AssertionError(f"packing does not round-trip at H={Hk}")
+        tol = lpj_tolerance(*args)
+        for emit in (False, True):
+            got = bsc_lpj(pk, *args[1:], emit_keys=emit)
+            ref = bsc_lpj(*args, emit_keys=emit)
+            want = bsc_lpj_plain(pk, *args[1:], emit_keys=emit)
+            torch.cuda.synchronize()
+            if emit:
+                (got, gk), (ref, rk), (want, wk) = got, ref, want
+                if not (torch.equal(gk, rk) and torch.equal(gk, wk)):
+                    raise AssertionError(f"bsc_lpj packed keys differ at H={Hk} K={K}")
+            if not torch.equal(got, ref):
+                raise AssertionError(f"bsc_lpj packed H={Hk} K={K} emit={emit}: not "
+                                     "bit-identical to the int8 kernel")
+            err = (got.double() - want.double()).abs()
+            if not bool((err <= tol).all()):
+                raise AssertionError(f"bsc_lpj packed H={Hk} K={K} emit={emit}: max err "
+                                     f"{err.max().item():.3g} over tolerance")
+            ms = cuda_ms(lambda: bsc_lpj(pk, *args[1:], emit_keys=emit))
+            plain = cuda_ms(lambda: bsc_lpj_plain(pk, *args[1:], emit_keys=emit))
+            bnd, by = lpj_bound(args[0], emit, packed=True)
+            say(f"bsc_lpj packed H={Hk} K={K} keys={emit}: bit-identical to int8, max_abs_err "
+                f"{err.max().item():.3g}; {ms:.4f} ms, plain {plain:.4f} ms, bound {bnd:.4f} ms "
+                f"({by})")
+            if (Hk, K, emit) == (256, 64, False):  # the K^(n) launch of main_packed
+                rows["bsc_lpj_packed"] = dict(max_abs_err=err.max().item(), ms=ms,
+                                              plain_ms=plain, bound_ms=bnd, bound_by=by)
+
+    for Hk in (256, 100, 64):
+        p = torch.full((B, 1, 1), 2.0 / Hk)
+        p[:64] = 0.5
+        ss = (torch.rand(B, S, Hk, generator=gen) < p).to(torch.int8).to(device)
+        rs = torch.softmax(torch.randn(B, S, generator=gen) * 3, -1).to(device)
+        pk = pack_bits_lane(ss)
+        got, ref = bsc_suffstat(pk, rs, H=Hk), bsc_suffstat(ss, rs)
+        want = bsc_suffstat_plain(pk, rs, H=Hk)
+        torch.cuda.synchronize()
+        errs = []
+        for name, g, r, w, rel in zip(("rho", "sabs", "Wq"), got, ref, want, (1e-5, 0.0, 1e-5)):
+            if not torch.equal(g, r):
+                raise AssertionError(f"bsc_suffstat packed H={Hk} {name}: not bit-identical "
+                                     "to the int8 kernel")
+            err = (g - w).abs()
+            if not bool((err <= rel * w.abs()).all()):
+                raise AssertionError(f"bsc_suffstat packed H={Hk} {name}: max err "
+                                     f"{err.max().item():.3g} over rel {rel}")
+            errs.append(err.max().item())
+        ms = cuda_ms(lambda: bsc_suffstat(pk, rs, H=Hk))
+        plain = cuda_ms(lambda: bsc_suffstat_plain(pk, rs, H=Hk))
+        bnd, by = suffstat_bound(ss, packed=True)
+        say(f"bsc_suffstat packed H={Hk} S={S}: bit-identical to int8, max_abs_err "
+            f"{max(errs):.3g}; {ms:.4f} ms, plain {plain:.4f} ms, bound {bnd:.4f} ms ({by})")
+        if Hk == H:
+            rows["bsc_suffstat_packed"] = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain,
+                                               bound_ms=bnd, bound_by=by)
     return rows
 
 
@@ -585,14 +688,18 @@ def bars_data(Hx, N, seed):
     return (s @ W.T + rng.standard_normal((N, R * R))).astype(np.float32)
 
 
-def exact_epoch(launches):
+def exact_epoch(launches, **opts):
+    """One exact-mode EBSC epoch (H = 10, S = 2^10, N = 4096 in 2 blocks,
+    bars data) on the card against the CPU's plain path, with the
+    init_states options ``opts`` (packed_states, allzero): F within 1e-4
+    |F|, W within 1e-3 of its largest magnitude."""
     Hx, Nx = 10, 4096
     Y = bars_data(Hx, Nx, seed=1)
     F, Ws = {}, {}
     for dev in ("cpu", DEVICE):
         model = BSC(D=Y.shape[1], H=Hx, device=dev)
         data = make_data(Y, n_blocks=2, device=dev)
-        cfg, estate = init_states(N=Nx, S=2**Hx, H=Hx, n_blocks=2, device=dev)
+        cfg, estate = init_states(N=Nx, S=2**Hx, H=Hx, n_blocks=2, device=dev, **opts)
         params = model.standard_init(data, seed=1, y_host=Y)
         if dev == DEVICE:
             launches.reset()
@@ -600,9 +707,12 @@ def exact_epoch(launches):
             params, estate, data, torch.Generator(device=dev).manual_seed(0), cfg)
         F[dev], Ws[dev] = float(stats.F), params.W.cpu()
         if dev == DEVICE:
-            launches.expect(lpj=2, suffstat=2)
+            if cfg.packed_states:
+                launches.expect(lpj_packed=2, suffstat_packed=2)
+            else:
+                launches.expect(lpj=2, suffstat=2)
     werr = (Ws[DEVICE] - Ws["cpu"]).abs().max().item()
-    say(f"exact H={Hx} N={Nx}: F card {F[DEVICE]:.6f}, F cpu {F['cpu']:.6f}, "
+    say(f"exact H={Hx} N={Nx} {opts}: F card {F[DEVICE]:.6f}, F cpu {F['cpu']:.6f}, "
         f"max |dW| {werr:.3g}")
     if not abs(F[DEVICE] - F["cpu"]) <= 1e-4 * abs(F["cpu"]):
         raise AssertionError("exact-mode F differs between the card and the CPU")
@@ -610,10 +720,11 @@ def exact_epoch(launches):
         raise AssertionError("exact-mode W differs between the card and the CPU")
 
 
-def primary_setup(device):
+def primary_setup(device, packed_states=False):
     """(model, data, cfg, estate, params) of the primary configuration, with
     synthetic data made on the host from seed 0 as bench.py:90-100 makes
-    it, and initial states and Theta^0 from seed 0."""
+    it, and initial states (lane-major packed with ``packed_states``, the
+    switch bench.py:103-104 names) and Theta^0 from seed 0."""
     N = N_BLOCKS * B
     rng = np.random.default_rng(0)
     W_gen = rng.standard_normal((D, H)).astype(np.float32)
@@ -623,8 +734,12 @@ def primary_setup(device):
     data = make_data(Y, n_blocks=N_BLOCKS, device=device)
     cfg, estate = init_states(N=N, S=S, H=H, no_parents=N_PARENTS, no_children=N_CHILDREN,
                               no_generations=N_GENERATIONS, n_blocks=N_BLOCKS, seed=0,
-                              device=device)
+                              device=device, packed_states=packed_states)
     return model, data, cfg, estate, model.standard_init(data, seed=0, y_host=Y)
+
+
+def primary_packed_setup(device):
+    return primary_setup(device, packed_states=True)
 
 
 def exact_sssc(launches):
@@ -856,9 +971,12 @@ def drive(setup, launches, expect, profile=False, do_reconstruction=False,
     set-up, then 1 warm-up and ``timed_epochs`` timed EM epochs with the
     launch counts set to 0 just before and checked just after, F finite
     (and with ``rising`` higher after the epochs than after the first), the
-    state, parameters and any reconstruction well formed; with ``profile``
-    one more epoch under torch.profiler.  Returns the launch counts of the
-    epochs and the last reconstruction (or None)."""
+    state (int8 or packed), its stored lpj, the parameters and any
+    reconstruction well formed; with ``profile`` one more epoch under
+    torch.profiler.  Returns the launch counts of the epochs, the last
+    reconstruction (or None) and the run's last state: a dict with keys
+    counts, y_rec, F (per epoch), params, estate, cfg and the last epoch's
+    stats."""
     t0 = time.perf_counter()
     model, data, cfg, estate, params = setup(DEVICE)
     gen = torch.Generator(device=DEVICE).manual_seed(0)
@@ -889,8 +1007,10 @@ def drive(setup, launches, expect, profile=False, do_reconstruction=False,
         raise AssertionError(f"non-finite F: {Fs}")
     if rising and not Fs[-1] > Fs[0]:
         raise AssertionError(f"F did not rise over the epochs: {Fs}")
-    shape = (data.n_blocks, data.y.shape[1], cfg.S, cfg.H)
-    if tuple(estate.ss.shape) != shape or not all(
+    width = n_bytes_lane(cfg.H) if cfg.packed_states else cfg.H
+    shape = (data.n_blocks, data.y.shape[1], cfg.S, width)
+    if tuple(estate.ss.shape) != shape or tuple(estate.lpj.shape) != shape[:2] + (
+            cfg.S_perm + cfg.S,) or not all(
             bool(torch.isfinite(v).all()) for v in vars(params).values()):
         raise AssertionError("malformed state or parameters after the epochs")
     if do_reconstruction and not (
@@ -900,25 +1020,93 @@ def drive(setup, launches, expect, profile=False, do_reconstruction=False,
     if profile:
         profile_epoch(model, params, estate, data, gen, cfg, sorted(timed)[len(timed) // 2],
                       do_reconstruction)
-    return counts, y_rec
+    return dict(counts=counts, y_rec=y_rec, F=Fs, params=params, estate=estate, cfg=cfg,
+                stats=stats)
+
+
+def eopts_setup(kind, swap_merge=False, **opts):
+    """A set-up function for ``drive``: bars-size data (EBSC: bars data at
+    H = 8, D = 16; ES3C: data from SSSC.generate_data at H = 8, D = 16),
+    N = 4096 in 2 blocks, S = 8, 4 parents x 2 children (n_new = S, as the
+    whole-set merge needs), with the init_states options ``opts`` and
+    ``swap_merge``; initial states and Theta^0 from seed 0."""
+    Hx, Nx = 8, 4096
+
+    def setup(device):
+        if kind == "sssc":
+            g = torch.Generator().manual_seed(3)
+            A = torch.randn(Hx, Hx, generator=g) * 0.3
+            gen_params = SSSCParams(W=2 * torch.randn(16, Hx, generator=g),
+                                    pies=torch.full((Hx,), 2.0 / Hx),
+                                    mus=torch.randn(Hx, generator=g),
+                                    Psi=A @ A.T + torch.eye(Hx), sigma2=torch.tensor(0.5))
+            Y = SSSC(D=16, H=Hx, device="cpu").generate_data(gen_params, Nx, g)["y"].numpy()
+            model = SSSC(D=16, H=Hx, device=device)
+        else:
+            Y = bars_data(Hx, Nx, seed=3)
+            model = BSC(D=Y.shape[1], H=Hx, device=device)
+        data = make_data(Y, n_blocks=2, device=device)
+        cfg, estate = init_states(N=Nx, S=8, H=Hx, no_parents=4, no_children=2,
+                                  no_generations=1, n_blocks=2, seed=0, device=device, **opts)
+        cfg = dataclasses.replace(cfg, swap_merge=swap_merge)
+        return model, data, cfg, estate, model.standard_init(data, seed=0, y_host=Y)
+
+    return setup
+
+
+def eopts(launches):
+    """Short EA runs (1 warm-up, 3 epochs) of both models with the other
+    E-step options, each held to drive's checks and to what the option
+    promises: the background unit on in every state and its pies at
+    1 - 1.1e-5, the permanent state's lpj stored first (drive checks the
+    width), and with the whole-set merge that rejects nothing every set
+    replaced (S_sub = S_nunique)."""
+    runs = (dict(background=True, swap_merge=True),
+            dict(allzero=True, unification=False),
+            dict(packed_states=True, unification=False, reject_worse=False))
+    for kind in ("bsc", "sssc"):
+        for opts in runs:
+            say(f"{kind} {opts}:")
+            if kind == "sssc":
+                expect = dict(sssc_lpj=4, sssc_suffstat=2)
+            elif opts.get("packed_states"):
+                expect = dict(lpj_packed=4, suffstat_packed=2)
+            else:
+                expect = dict(lpj=4, suffstat=2)
+            run = drive(eopts_setup(kind, **opts), launches, expect, rising=False)
+            cfg, ss, params = run["cfg"], run["estate"].ss, run["params"]
+            states = unpack_bits_lane(ss, cfg.H) if cfg.packed_states else ss != 0
+            if cfg.background and not (bool(states[..., -1].all()) and abs(
+                    float(params.pies[-1]) - (1.0 - 1.1e-5)) < 1e-7):
+                raise AssertionError(f"{kind} {opts}: background unit not kept on")
+            st = run["stats"]
+            if not cfg.unification and not cfg.reject_worse and not (
+                    float(st.S_sub) == float(st.S_nunique)):
+                raise AssertionError(f"{kind} {opts}: S_sub {float(st.S_sub)} != S_nunique "
+                                     f"{float(st.S_nunique)} with nothing rejected")
 
 
 class Launches:
-    """Reads and resets the kernel wrappers' launch counters."""
+    """Reads and resets the kernel wrappers' launch counters (the packed
+    modes of the EBSC kernels count apart from their int8 modes)."""
 
     def __init__(self):
-        self.fns = {"lpj": bsc_lpj, "suffstat": bsc_suffstat, "sssc_lpj": sssc_lpj,
-                    "sssc_suffstat": sssc_suffstat, "sssc_lpj_masked": sssc_lpj_masked,
-                    "sssc_suffstat_masked": sssc_suffstat_masked}
+        self.fns = {"lpj": (bsc_lpj, "launches"), "lpj_packed": (bsc_lpj, "packed_launches"),
+                    "suffstat": (bsc_suffstat, "launches"),
+                    "suffstat_packed": (bsc_suffstat, "packed_launches"),
+                    "sssc_lpj": (sssc_lpj, "launches"),
+                    "sssc_suffstat": (sssc_suffstat, "launches"),
+                    "sssc_lpj_masked": (sssc_lpj_masked, "launches"),
+                    "sssc_suffstat_masked": (sssc_suffstat_masked, "launches")}
 
     def reset(self):
-        for f in self.fns.values():
-            f.launches = 0
+        for f, attr in self.fns.values():
+            setattr(f, attr, 0)
 
     def expect(self, **want):
         """Check every count: the kernels not named must not have run."""
         want = {k: want.get(k, 0) for k in self.fns}
-        got = {k: f.launches for k, f in self.fns.items()}
+        got = {k: getattr(f, attr) for k, (f, attr) in self.fns.items()}
         if got != want:
             raise AssertionError(f"kernel launches {got}, expected {want}")
         return got
@@ -956,42 +1144,68 @@ def main():
         rows = check_kernels(DEVICE)
         rows.update(check_sssc_kernels(DEVICE, torch.Generator().manual_seed(1)))
         rows.update(check_masked_kernels(DEVICE, torch.Generator().manual_seed(2)))
+        rows.update(check_packed_kernels(DEVICE, torch.Generator().manual_seed(3)))
     with Phase("exact"):
         exact_epoch(launches)
     with Phase("main"):
-        counts, _ = drive(primary_setup, launches, dict(lpj=2 * N_BLOCKS, suffstat=N_BLOCKS),
-                          profile=True)
+        main = drive(primary_setup, launches, dict(lpj=2 * N_BLOCKS, suffstat=N_BLOCKS),
+                     profile=True)
+        counts = main["counts"]
+        del main["params"], main["estate"]
     with Phase("exact_sssc"):
         exact_sssc(launches)
     with Phase("sssc_fl"):
-        fl, _ = drive(sssc_setup(SSSC_FL), launches, dict(sssc_lpj=2, sssc_suffstat=1))
+        fl = drive(sssc_setup(SSSC_FL), launches, dict(sssc_lpj=2, sssc_suffstat=1))["counts"]
     with Phase("sssc_primary"):
-        prim, _ = drive(sssc_setup(SSSC_PRIMARY), launches,
-                        dict(sssc_lpj=2 * SSSC_PRIMARY[0], sssc_suffstat=SSSC_PRIMARY[0]),
-                        profile=True)
+        prim = drive(sssc_setup(SSSC_PRIMARY), launches,
+                     dict(sssc_lpj=2 * SSSC_PRIMARY[0], sssc_suffstat=SSSC_PRIMARY[0]),
+                     profile=True)["counts"]
     with Phase("exact_sssc_incomplete"):
         exact_incomplete("sssc", launches)
     with Phase("exact_bsc_incomplete"):
         exact_incomplete("bsc", launches)
     inp = inpaint_data()
     with Phase("sssc_inpaint"):
-        inpaint, y_rec = drive(inpaint_setup("sssc", inp), launches,
-                               dict(sssc_lpj_masked=2, sssc_suffstat_masked=1), profile=True,
-                               do_reconstruction=True, rising=False)
-        merge_and_psnr(inp, y_rec)
+        run = drive(inpaint_setup("sssc", inp), launches,
+                    dict(sssc_lpj_masked=2, sssc_suffstat_masked=1), profile=True,
+                    do_reconstruction=True, rising=False)
+        inpaint = run["counts"]
+        merge_and_psnr(inp, run["y_rec"])
+        del run
     with Phase("bsc_inpaint"):
-        bsc_inp, _ = drive(inpaint_setup("bsc", inp), launches, dict(suffstat=1),
-                           do_reconstruction=True, timed_epochs=2, rising=False)
+        bsc_inp = drive(inpaint_setup("bsc", inp), launches, dict(suffstat=1),
+                        do_reconstruction=True, timed_epochs=2, rising=False)["counts"]
+    with Phase("exact_packed"):
+        exact_epoch(launches, packed_states=True)
+        exact_epoch(launches, allzero=True)
+    with Phase("main_packed"):
+        packed = drive(primary_packed_setup, launches,
+                       dict(lpj_packed=2 * N_BLOCKS, suffstat_packed=N_BLOCKS), profile=True)
+        say(f"F per epoch, int8 states {main['F']}; packed states {packed['F']}")
+        if packed["F"] != main["F"]:
+            raise AssertionError("F per epoch of the packed main path differs from main's")
+        packed_counts = packed["counts"]
+        del packed
+    with Phase("eopts"):
+        eopts(launches)
 
     kernels = [
         dict(name="bsc_lpj", route="cuda", source="evo_tpu_torch/csrc/bsc_lpj.cu",
              replaces="evo_tpu/ops/pallas_lpj.py:97", launches=counts["lpj"],
              library_ms=None, **rows["bsc_lpj"]),
+        dict(name="bsc_lpj_packed", route="cuda", source="evo_tpu_torch/csrc/bsc_lpj.cu",
+             replaces="evo_tpu/ops/pallas_lpj.py:47", launches=packed_counts["lpj_packed"],
+             library_ms=None, **rows["bsc_lpj_packed"]),
         # launches: the EBSC main path and bsc_inpaint together
         dict(name="bsc_suffstat", route="cuda", source="evo_tpu_torch/csrc/bsc_suffstat.cu",
              replaces="evo_tpu/ops/pallas_suffstat.py:60",
              launches=counts["suffstat"] + bsc_inp["suffstat"], library_ms=None,
              **rows["bsc_suffstat"]),
+        dict(name="bsc_suffstat_packed", route="cuda",
+             source="evo_tpu_torch/csrc/bsc_suffstat.cu",
+             replaces="evo_tpu/ops/pallas_suffstat.py:30",
+             launches=packed_counts["suffstat_packed"], library_ms=None,
+             **rows["bsc_suffstat_packed"]),
         # launches: the two complete-data ES3C paths' runs together
         dict(name="sssc_lpj", route="cuda", source="evo_tpu_torch/csrc/sssc_lpj.cu",
              replaces="evo_tpu/ops/pallas_sssc.py:676",

@@ -53,9 +53,11 @@ def sssc_params_to_numpy(p: SSSCParams) -> dict:
 
 def estate_from_numpy(e, device=None) -> EState:
     """State sets (attributes ss as 0/1 [nb, B, S, H], lpj) -> port tensors;
-    the states become int8."""
+    the states become int8, and lane-major packed uint8 states stay so."""
     dev = resolve_device(device)
-    return EState(ss=_t(np.asarray(e.ss).astype(np.int8), dev), lpj=_t(e.lpj, dev))
+    ss = np.asarray(e.ss)
+    return EState(ss=_t(ss if ss.dtype == np.uint8 else ss.astype(np.int8), dev),
+                  lpj=_t(e.lpj, dev))
 
 
 def estate_to_numpy(e: EState) -> dict:

@@ -1,7 +1,8 @@
 // BSC log-pseudo-joint of binary candidate states, with optional dedup keys.
 //
 // Replaces: evo_tpu/ops/pallas_lpj.py:bsc_lpj_pallas (body _make_kernel),
-// int8 states, both emit_keys modes.  For every state row (b, k):
+// int8 states and lane-major packed uint8 states (EAConfig.packed_states),
+// both emit_keys modes.  For every state row (b, k):
 //
 //   lpj[b,k] = pre1 * (y2[b] - 2 s.Wty[b] + s^T G s) + pil_bar * |s|
 //
@@ -9,9 +10,10 @@
 // packed words for H <= 64, the 2-word halfword hash above.
 //
 // What bounds it on an H100: reading the int8 states once (67 MB at
-// B*K = 262,144 states, H = 256: 0.02 ms at 3.35 TB/s).  For a binary s,
-// s^T G s is a sum of G over the active pairs, |s|^2 adds, which at the
-// EA's sparsity of about 2 bits per state is far below the byte time.
+// B*K = 262,144 states, H = 256: 0.02 ms at 3.35 TB/s; packed, 8.4 MB).
+// For a binary s, s^T G s is a sum of G over the active pairs, |s|^2 adds,
+// which at the EA's sparsity of about 2 bits per state is far below the
+// byte time.
 // This kernel does the dense product instead, 2 H^2 f32 operations per
 // state (3.4e10 here, 0.5 ms at 67 TFLOP/s), so it runs well above that
 // bound; skipping the zero bits is later work.
@@ -26,6 +28,15 @@
 // uint32 keys directly (the TPU kernel's transposed halfword output was a
 // Mosaic layout device that Hopper does not need).  Rows past H are zero
 // in shared memory, so a ragged H needs no padding by the caller.
+//
+// Packed input (PACKED): a state row is W8 = ceil(H/8) bytes, latent h in
+// bit h / W8 of byte h % W8 (the TPU kernel's pltpu.repeat was a Mosaic
+// lane device and is not carried over).  Only the staging changes: each
+// latent is read from its byte into the same int8 tile, zero past H, so
+// the lpj and the keys are bit-identical to the int8 kernel's on the same
+// states (the keys are those of the unpacked states, as the TPU kernel's).
+// The state bytes to read shrink 8x (8.4 MB instead of 67 MB at the main
+// path's block); the dense product stays, so the time should not.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -63,9 +74,17 @@ __device__ __forceinline__ uint32_t halfword(const int8_t* row, int v) {
   return hw;
 }
 
-template <bool KEYS>
+// latent h of state row `row`: an int8 0/1 byte, or bit h / W8 of byte h % W8
+template <bool PACKED>
+__device__ __forceinline__ int8_t state_bit(const uint8_t* ss, size_t row, int h, int H,
+                                            int W8) {
+  if (PACKED) return int8_t((ss[row * W8 + h % W8] >> (h / W8)) & 1u);
+  return int8_t(ss[row * H + h]);
+}
+
+template <bool KEYS, bool PACKED>
 __global__ void __launch_bounds__(THREADS)
-bsc_lpj_kernel(const int8_t* __restrict__ ss, const float* __restrict__ wty,
+bsc_lpj_kernel(const uint8_t* __restrict__ ss, const float* __restrict__ wty,
                const float* __restrict__ y2, const float* __restrict__ G,
                const float* __restrict__ scal, float* __restrict__ lpj,
                uint32_t* __restrict__ keys, int n_rows, int K, int H, int Hq) {
@@ -78,11 +97,13 @@ bsc_lpj_kernel(const int8_t* __restrict__ ss, const float* __restrict__ wty,
   const int tx = tid & 3;   // columns 8*tx .. 8*tx+7 of a chunk
   const int ty = tid >> 2;  // rows 2*ty, 2*ty+1 of the tile
   const int r0 = blockIdx.x * ROWS;
+  const int W8 = (H + 7) / 8;
 
   for (int e = tid; e < ROWS * Hq; e += THREADS) {
     const int r = e / Hq, h = e - r * Hq;
     const int row = r0 + r;
-    s_t[r * srow + h] = (row < n_rows && h < H) ? ss[(size_t)row * H + h] : int8_t(0);
+    s_t[r * srow + h] = (row < n_rows && h < H) ? state_bit<PACKED>(ss, row, h, H, W8)
+                                                : int8_t(0);
   }
 
   float sgs[2] = {0.f, 0.f};
@@ -187,37 +208,40 @@ bsc_lpj_kernel(const int8_t* __restrict__ ss, const float* __restrict__ wty,
   }
 }
 
-}  // namespace
-
-extern "C" int evo_bsc_lpj(const void* ss, const void* wty, const void* y2, const void* G,
-                           const void* scal, void* lpj, void* keys, int B, int K, int H,
-                           void* stream) {
+template <bool KEYS, bool PACKED>
+int launch(const void* ss, const void* wty, const void* y2, const void* G, const void* scal,
+           void* lpj, void* keys, int B, int K, int H, void* stream) {
   const int n_rows = B * K;
   const int Hq = (H + 31) / 32 * 32;
   const size_t smem = size_t(ROWS) * (Hq + 4) + size_t(Hq) * CJ * sizeof(float);
-  const dim3 grid((n_rows + ROWS - 1) / ROWS);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (keys != nullptr) {
-    if (smem > 48 * 1024) {
-      cudaError_t e = cudaFuncSetAttribute(bsc_lpj_kernel<true>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-      if (e != cudaSuccess) return int(e);
-    }
-    bsc_lpj_kernel<true><<<grid, THREADS, smem, st>>>(
-        static_cast<const int8_t*>(ss), static_cast<const float*>(wty),
-        static_cast<const float*>(y2), static_cast<const float*>(G),
-        static_cast<const float*>(scal), static_cast<float*>(lpj),
-        static_cast<uint32_t*>(keys), n_rows, K, H, Hq);
-  } else {
-    if (smem > 48 * 1024) {
-      cudaError_t e = cudaFuncSetAttribute(bsc_lpj_kernel<false>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-      if (e != cudaSuccess) return int(e);
-    }
-    bsc_lpj_kernel<false><<<grid, THREADS, smem, st>>>(
-        static_cast<const int8_t*>(ss), static_cast<const float*>(wty),
-        static_cast<const float*>(y2), static_cast<const float*>(G),
-        static_cast<const float*>(scal), static_cast<float*>(lpj), nullptr, n_rows, K, H, Hq);
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(bsc_lpj_kernel<KEYS, PACKED>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+    if (e != cudaSuccess) return int(e);
   }
+  bsc_lpj_kernel<KEYS, PACKED>
+      <<<(n_rows + ROWS - 1) / ROWS, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const uint8_t*>(ss), static_cast<const float*>(wty),
+          static_cast<const float*>(y2), static_cast<const float*>(G),
+          static_cast<const float*>(scal), static_cast<float*>(lpj),
+          static_cast<uint32_t*>(keys), n_rows, K, H, Hq);
   return int(cudaGetLastError());
+}
+
+}  // namespace
+
+// ss: int8 0/1 [B, K, H]
+extern "C" int evo_bsc_lpj(const void* ss, const void* wty, const void* y2, const void* G,
+                           const void* scal, void* lpj, void* keys, int B, int K, int H,
+                           void* stream) {
+  return keys != nullptr ? launch<true, false>(ss, wty, y2, G, scal, lpj, keys, B, K, H, stream)
+                         : launch<false, false>(ss, wty, y2, G, scal, lpj, keys, B, K, H, stream);
+}
+
+// ss: lane-major packed uint8 [B, K, ceil(H/8)]
+extern "C" int evo_bsc_lpj_packed(const void* ss, const void* wty, const void* y2, const void* G,
+                                  const void* scal, void* lpj, void* keys, int B, int K, int H,
+                                  void* stream) {
+  return keys != nullptr ? launch<true, true>(ss, wty, y2, G, scal, lpj, keys, B, K, H, stream)
+                         : launch<false, true>(ss, wty, y2, G, scal, lpj, keys, B, K, H, stream);
 }

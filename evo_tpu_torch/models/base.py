@@ -75,21 +75,14 @@ def make_data(y: np.ndarray, x: Optional[np.ndarray] = None, n_blocks: int = 1,
                 row_valid=blk(row_valid), incomplete=incomplete)
 
 
-def check_em_step(data: Data, cfg, do_reconstruction: bool):
-    """Raise what an ``em_step`` cannot run: ValueError for incomplete data
-    without reconstruction, as evo_tpu raises it (its M-step consumes the
-    reconstruction: evo_tpu/models/bsc.py:341-348, sssc.py:348-354), and
-    NotImplementedError for what the port does not run yet: packed and
-    permanent states and the merges other than unification."""
+def check_em_step(data: Data, do_reconstruction: bool):
+    """Raise the ValueError evo_tpu raises for incomplete data without
+    reconstruction (its M-step consumes the reconstruction:
+    evo_tpu/models/bsc.py:341-348, sssc.py:348-354)."""
     if data.incomplete and not do_reconstruction:
         raise ValueError(
             "incomplete data requires do_reconstruction=True: the M-step "
             "consumes the reconstructed data for its W update")
-    if cfg.packed_states or cfg.allzero or cfg.background or not cfg.unification \
-            or cfg.swap_merge:
-        raise NotImplementedError(
-            "packed states, permanent states and the non-default merge "
-            "modes are not ported yet")
 
 
 def check_single_process():

@@ -14,6 +14,16 @@ block the lpj of K^(n) and of each generation's children go through the
 sufficient statistics through the ``bsc_suffstat`` kernel, and the rest is
 plain PyTorch on the same device.
 
+With ``EAConfig.packed_states`` the state sets stay lane-major bit-packed
+through the whole epoch, at every H (evo_tpu needs H % 32 == 0 for this on
+the TPU and otherwise unpacks each block; the results are the same): both
+kernels read the packed states, the EA keys them from their bytes and
+unpacks only the parents, the merge moves packed rows, and only the
+reconstruction and the incomplete-data lpj unpack what they read.  The
+permanent states (``allzero``, ``background``) and the merges other than
+the sorted unification merge (``swap_merge``, ``unification=False``) run
+as in evo_tpu.
+
 Incomplete data (NaN entries in ``make_data``) need
 ``do_reconstruction=True``, as in evo_tpu.  Their lpj runs under the
 per-datapoint Gram G_n = W^T diag(m_n) W and is plain PyTorch on every
@@ -22,8 +32,6 @@ device (``lpj_masked_gram``): evo_tpu has no TPU kernel for it either
 back here.  ``bsc_suffstat`` does not read the mask and stays the kernel.
 The reconstruction y_rec = where(x, y, sum_s r W s) is returned blocked
 [nb, B, D]; on incomplete data it feeds the W update and the sigma residual.
-Packed states, permanent states and the other merge modes raise
-NotImplementedError.
 """
 
 from __future__ import annotations
@@ -44,6 +52,7 @@ from evo_tpu_torch.models.base import (
     check_single_process,
     host_data,
 )
+from evo_tpu_torch.ops.bitpack import unpack_bits_lane
 from evo_tpu_torch.ops.bsc_lpj import bsc_lpj
 from evo_tpu_torch.ops.bsc_suffstat import bsc_suffstat
 from evo_tpu_torch.ops.linalg import equilibrated_pd_inverse
@@ -57,7 +66,7 @@ from evo_tpu_torch.ops.numerics import (
 from evo_tpu_torch.variational.config import EAConfig
 from evo_tpu_torch.variational.evolve import evolve_states_block
 from evo_tpu_torch.variational.state_init import EState, full_state_matrix
-from evo_tpu_torch.variational.varykn import vary_Kn
+from evo_tpu_torch.variational.varykn import merge_states
 
 PARAM_TOL = 1e-5  # reference noise_policy bounds (_models.py:47-52)
 
@@ -175,16 +184,20 @@ class BSC:
     def _estep_block(self, generator, ss_b, G_b, Wty_b, y2_b, valid_b, pre,
                      cfg: EAConfig):
         """Evolutionary E-step of one block [B, ...]: lpj of the current
-        K^(n), children by ``evolve_states_block``, merge by ``vary_Kn``.
-        A per-datapoint Gram G_b [B, H, H] (incomplete data) takes
-        ``lpj_masked_gram``, and the EA then computes its own dedup keys.
+        K^(n), children by ``evolve_states_block``, the merge ``cfg`` asks
+        for.  A per-datapoint Gram G_b [B, H, H] (incomplete data) takes
+        ``lpj_masked_gram``; the EA computes its own dedup keys then and on
+        packed states (the kernel's keys are those of unpacked states).
         Returns (ss2, lpj2, n_uni [B], n_sub [B], reset counts [3])."""
         args = (Wty_b, y2_b, G_b, pre["pre1"], pre["pil_bar"])
+        packed = cfg.packed_states
 
         def lpj_block(states):
             if G_b.dim() == 3:
+                if packed:
+                    states = unpack_bits_lane(states, self.H).to(torch.int8)
                 lpj, keys = lpj_masked_gram(states, *args), None
-            elif cfg.exact:
+            elif cfg.exact or packed:
                 lpj, keys = bsc_lpj(states, *args), None
             else:
                 lpj, keys = bsc_lpj(states, *args, emit_keys=True)
@@ -195,10 +208,11 @@ class BSC:
         if cfg.exact:
             zeros = torch.zeros(ss_b.shape[0], dtype=torch.int64, device=ss_b.device)
             return ss_b, lpj_K, zeros, zeros, counts
-        children, child_lpj, new_unique, _, aux = evolve_states_block(
+        children, child_lpj, new_unique, child_lpj_raw, aux = evolve_states_block(
             ss_b, lpj_K, lpj_block, cfg, pre["piH"], generator, ss_dkeys=ss_keys)
-        ss2, lpj2, n_sub, _ = vary_Kn(ss_b, lpj_K, children, child_lpj, cfg.mprime)
-        return ss2, lpj2, new_unique.sum(dim=1), n_sub, counts + sum(aux)
+        ss2, lpj2, n_uni, n_sub, _ = merge_states(cfg, ss_b, lpj_K, children, child_lpj,
+                                                  new_unique, child_lpj_raw)
+        return ss2, lpj2, n_uni, n_sub, counts + sum(aux)
 
     # ---------------------------------------------------------------- epoch
 
@@ -214,9 +228,12 @@ class BSC:
         On incomplete data the W update reads the reconstruction and the
         sigma residual is taken from it over x_infr, exactly as the
         reference does (evo_tpu bsc.py:425-452), also where x != x_infr.
+        With ``allzero`` the lpj of the permanent all-zero state, pre1 y2,
+        comes first in the stored lpj and its responsibility adds its
+        residual to the sigma sum (evo_tpu bsc.py:305-309, 437-452).
         ``generator`` (on the data's device) drives every random draw of
         the EA."""
-        check_em_step(data, cfg, do_reconstruction)
+        check_em_step(data, do_reconstruction)
         params = self.check_params(params)
         pre = self._precompute(params, data)
         dt, dev = params.W.dtype, params.W.device
@@ -233,27 +250,34 @@ class BSC:
         lpj_all = torch.empty_like(estate.lpj)
         y_rec_all = torch.empty_like(data.y) if do_reconstruction else None
         floor = 0.5 * eps_lpj(dt)
+        S_perm = cfg.S_perm
 
         for i in range(data.n_blocks):
             y_b, valid_b = data.y[i], data.row_valid[i]
             G_b, Wty_b, y2_b = block_gram(W, y_b, data.x_infr[i], data.incomplete)
             ss2, lpj2, n_uni, n_sub, counts = self._estep_block(
                 generator, estate.ss[i], G_b, Wty_b, y2_b, valid_b, pre, cfg)
+            lpj_full = torch.cat([pre["pre1"] * y2_b[:, None], lpj2], 1) if S_perm else lpj2
             vf = valid_b.to(dt)
-            Fsum += (shifted_logsumexp(lpj2) * vf).sum()
-            rs = posterior_weights(lpj2) * vf[:, None]
-            rho, s_abs, Wq_b = bsc_suffstat(ss2, rs)
+            Fsum += (shifted_logsumexp(lpj_full) * vf).sum()
+            r = posterior_weights(lpj_full) * vf[:, None]
+            rs = r[:, S_perm:].contiguous()
+            rho, s_abs, Wq_b = bsc_suffstat(ss2, rs, H=self.H)
             Wq += Wq_b
             pies += rho.sum(dim=0)
             if do_reconstruction:
                 # posterior-predictive mean (reference _models.py:614-665)
-                means = ss2.to(dt) @ W.T  # [B, S, D]
+                sf = unpack_bits_lane(ss2, self.H) if cfg.packed_states else ss2
+                means = sf.to(dt) @ W.T  # [B, S, D]
                 y_rec_all[i] = torch.where(data.x[i], y_b, (rs[:, None, :] @ means)[:, 0])
             if data.incomplete:
                 # sum_s r ||m (y_rec - W s)||^2 from the reconstruction
                 y_rec = y_rec_all[i]
-                dy = (y_rec[:, None, :] - means) * data.x_infr[i][:, None, :]
+                m = data.x_infr[i]
+                dy = (y_rec[:, None, :] - means) * m[:, None, :]
                 sig += (rs * (dy * dy).sum(dim=-1)).sum()
+                if S_perm:
+                    sig += (r[:, 0] * (y_rec * y_rec * m).sum(dim=-1)).sum()
                 Wp += rho.T @ y_rec
             else:
                 # sum_s r ||y - W s||^2 recovered from the lpj; reset-clamped
@@ -261,15 +285,17 @@ class BSC:
                 # responsibility is ~0 anyway)
                 resid2 = torch.clamp((lpj2 - pre["pil_bar"] * s_abs) / pre["pre1"], min=0.0)
                 sig += torch.where(lpj2 > floor, rs * resid2, 0.0).sum()
+                if S_perm:
+                    sig += (r[:, 0] * y2_b).sum()
                 Wp += rho.T @ y_b
             nuni += (n_uni * valid_b).sum()
             nsub += (n_sub * valid_b).sum()
             resets += counts
             ss_all[i] = ss2
-            lpj_all[i] = lpj2
+            lpj_all[i] = lpj_full
 
         acc = dict(Wp=Wp, Wq=Wq, pies=pies, sigma=sig)
-        new_params, guard = self._m_step_finalize(params, acc, pre, data.incomplete)
+        new_params, guard = self._m_step_finalize(params, acc, pre, data.incomplete, cfg)
         N = pre["N"]
         stats = StepStats(
             F=pre["ljc"] + Fsum / N, S_nunique=nuni / N, S_sub=nsub / N,
@@ -281,13 +307,15 @@ class BSC:
 
     # ---------------------------------------------------------------- M-step
 
-    def _m_step_finalize(self, params: BSCParams, acc: dict, pre: dict, incomplete: bool):
+    def _m_step_finalize(self, params: BSCParams, acc: dict, pre: dict, incomplete: bool,
+                         cfg: EAConfig):
         """Closed-form updates from the epoch's accumulators (reference
         bsc.py:225-277) with evo_tpu's guards: an equilibrated PD solve with
         a relative ridge in f32 for W, and a floor on sigma at 1e-3 of the
         data RMS.  On incomplete data the sigma update adds sum_d times the
-        old sigma^2 (evo_tpu bsc.py:530-532).  Returns (params, sigma-floor
-        flag)."""
+        old sigma^2 (evo_tpu bsc.py:530-532).  With ``background`` the last
+        unit's pi is 1 - 1.1e-5 (bsc.py:523-524).  Returns (params,
+        sigma-floor flag)."""
         N, D, H = pre["N"], self.D, self.H
         new = dict(W=params.W, pi=params.pi, sigma=params.sigma, pies=params.pies)
         if "W" in self.to_learn:
@@ -295,6 +323,8 @@ class BSC:
             new["W"] = (equilibrated_pd_inverse(acc["Wq"], rel_ridge=ridge) @ acc["Wp"]).T
         if "pi" in self.to_learn:
             new["pies"] = acc["pies"] / N
+            if cfg.background:
+                new["pies"][-1] = 1.0 - 1.1e-5
             new["pi"] = new["pies"].sum() / H
         guard = torch.zeros((), dtype=torch.int64, device=params.W.device)
         if "sigma" in self.to_learn:

@@ -23,10 +23,16 @@ kernels (``sssc_lpj_masked``, ``sssc_suffstat_masked``), and need
 y_rec = where(x, y, <sz> W^T) is returned blocked [nb, B, D] and feeds the
 W update.
 
+With ``EAConfig.packed_states`` the state sets are stored lane-major
+bit-packed; each block is unpacked to int8 at its start and the merged set
+packed at its end, as in evo_tpu (evo_tpu/models/sssc.py:486-487, 597),
+which routes packed ES3C to XLA; the port runs its kernels on the unpacked
+block.  The permanent states (``allzero``, ``background``) and the merges
+``swap_merge`` and ``unification=False`` run as in evo_tpu.
+
 Envelope: H <= 128 on complete data and H <= 64 on incomplete data (the
-kernels' envelope; evo_tpu runs wider models on its XLA path).  Packed
-states, permanent states, the other merge modes, wider models and
-multi-process initialization raise NotImplementedError.
+kernels' envelope; evo_tpu runs wider models on its XLA path).  Wider
+models and multi-process initialization raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -47,6 +53,7 @@ from evo_tpu_torch.models.base import (
     check_single_process,
     host_data,
 )
+from evo_tpu_torch.ops.bitpack import pack_bits_lane, unpack_bits_lane
 from evo_tpu_torch.ops.linalg import equilibrated_pd_inverse
 from evo_tpu_torch.ops.numerics import (
     free_energy_from_lpj,
@@ -59,7 +66,7 @@ from evo_tpu_torch.ops.sssc_suffstat import sssc_suffstat
 from evo_tpu_torch.variational.config import EAConfig
 from evo_tpu_torch.variational.evolve import evolve_states_block
 from evo_tpu_torch.variational.state_init import EState, full_state_matrix
-from evo_tpu_torch.variational.varykn import vary_Kn
+from evo_tpu_torch.variational.varykn import merge_states
 
 PARAM_TOL = 1e-5  # reference noise_policy bounds (sssc.py:40,51-58)
 EPS_PIES = 5e-5
@@ -203,10 +210,11 @@ class SSSC:
         if cfg.exact:
             zeros = torch.zeros(ss_b.shape[0], dtype=torch.int64, device=ss_b.device)
             return ss_b, lpj_K, zeros, zeros, counts
-        children, child_lpj, new_unique, _, aux = evolve_states_block(
+        children, child_lpj, new_unique, child_lpj_raw, aux = evolve_states_block(
             ss_b, lpj_K, lpj_block, cfg, pre["piH"], generator)
-        ss2, lpj2, n_sub, _ = vary_Kn(ss_b, lpj_K, children, child_lpj, cfg.mprime)
-        return ss2, lpj2, new_unique.sum(dim=1), n_sub, counts + sum(aux)
+        ss2, lpj2, n_uni, n_sub, _ = merge_states(cfg, ss_b, lpj_K, children, child_lpj,
+                                                  new_unique, child_lpj_raw)
+        return ss2, lpj2, n_uni, n_sub, counts + sum(aux)
 
     # ---------------------------------------------------------------- epoch
 
@@ -222,7 +230,7 @@ class SSSC:
         sigma2 update the observed entries of the original y.
         ``generator`` (on the data's device) drives every random draw of
         the EA."""
-        check_em_step(data, cfg, do_reconstruction)
+        check_em_step(data, do_reconstruction)
         self._check_width(data)
         params = self.check_params(params)
         pre = self._precompute(params, data)
@@ -245,11 +253,16 @@ class SSSC:
         for i in range(data.n_blocks):
             y_b, valid_b = data.y[i], data.row_valid[i]
             G_b, Wty_b, y2_b = block_gram(params.W, y_b, data.x_infr[i], data.incomplete)
+            ss_b = estate.ss[i]
+            if cfg.packed_states:
+                ss_b = unpack_bits_lane(ss_b, H).to(torch.int8)
             ss2, lpj2, n_uni, n_sub, counts = self._estep_block(
-                generator, estate.ss[i], G_b, Wty_b, y2_b, valid_b, params, pre, cfg)
+                generator, ss_b, G_b, Wty_b, y2_b, valid_b, params, pre, cfg)
+            if cfg.allzero:  # the permanent all-zero state (evo_tpu sssc.py:467-469)
+                lpj2 = torch.cat([-0.5 * pre["sigma2_inv"] * y2_b[:, None], lpj2], 1)
             vf = valid_b.to(dt)
             Fsum += (shifted_logsumexp(lpj2) * vf).sum()
-            rs = posterior_weights(lpj2) * vf[:, None]
+            rs = (posterior_weights(lpj2) * vf[:, None])[:, cfg.S_perm:].contiguous()
             xpt_sz, xpt_s, xpt_ss, xpt_szsz, s_sz, sz_sz = sssc_suffstat(
                 ss2, rs, Wty_b, G_b, params.Psi, params.mus, pre["sigma2_inv"])
             y_m = y_b
@@ -270,10 +283,10 @@ class SSSC:
             nuni += (n_uni * valid_b).sum()
             nsub += (n_sub * valid_b).sum()
             resets += counts
-            ss_all[i] = ss2
+            ss_all[i] = pack_bits_lane(ss2) if cfg.packed_states else ss2
             lpj_all[i] = lpj2
 
-        new_params, guards = self._m_step_finalize(params, acc, pre, data.incomplete)
+        new_params, guards = self._m_step_finalize(params, acc, pre, data.incomplete, cfg)
         N = pre["N"]
         zero = torch.zeros((), dtype=torch.int64, device=dev)
         stats = StepStats(
@@ -284,7 +297,8 @@ class SSSC:
 
     # ---------------------------------------------------------------- M-step
 
-    def _m_step_finalize(self, params: SSSCParams, acc: dict, pre: dict, incomplete: bool):
+    def _m_step_finalize(self, params: SSSCParams, acc: dict, pre: dict, incomplete: bool,
+                         cfg: EAConfig):
         """Closed-form updates (reference sssc.py:687-770) with evo_tpu's
         guards (evo_tpu/models/sssc.py:637-749): W from an equilibrated PD
         solve, mus and Psi frozen for units whose activation mass
@@ -308,6 +322,8 @@ class SSSC:
                 acc["xpt_szsz"], rel_ridge=0.0 if f64 else 1e-6)
         if "pies" in self.to_learn:
             new["pies"] = torch.clamp(acc["xpt_s"] / N, EPS_PIES, 1.0 - EPS_PIES)
+            if cfg.background:  # evo_tpu sssc.py:672-673
+                new["pies"][-1] = 1.0 - 1.1e-5
         if "mus" in self.to_learn:
             mus_upd = acc["xpt_sz"] / (acc["xpt_s"] + torch.finfo(dt).eps)
             new["mus"] = torch.where(alive, mus_upd, params.mus)

@@ -33,8 +33,10 @@ _I = ctypes.c_int
 SIGNATURES = {
     # ss, wty, y2, G, scal, lpj, keys, B, K, H, stream
     "evo_bsc_lpj": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "evo_bsc_lpj_packed": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     # ss, rs, rho, sabs, wq, partial, B, S, H, chunk, stream
     "evo_bsc_suffstat": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "evo_bsc_suffstat_packed": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # ss, wty, y2, G, Psi, mus, pil_bar, s2inv, lpj, bad, B, K, H, cap, stream
     "evo_sssc_lpj": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # ss, rs, wty, G, Psi, mus, s2inv, xpt_sz, xpt_s, out, partial, B, S, H, cap,

@@ -1,4 +1,4 @@
-"""Packed binary-state keys and fixed-shape duplicate detection.
+"""Packed binary states, their keys and fixed-shape duplicate detection.
 
 Counterpart: evo_tpu/ops/bitpack.py:24-262.  Keys are bit-identical to
 evo_tpu's: ``pack_states`` words for H <= 64, the 2-word halfword hash
@@ -10,10 +10,19 @@ np.uint32)`` gives evo_tpu's values.  Only equality is ever asked of a key.
 
 Unlike evo_tpu's per-datapoint functions, the comparisons here are batched
 over any leading dimensions.
+
+The bit-packed state format of ``EAConfig.packed_states`` is evo_tpu's
+lane-major uint8 layout: latent l of H lives in byte l mod W8, bit
+l div W8, W8 = ceil(H/8) (``pack_bits_lane``), with the pad bits past H
+zero.  ``dedup_keys_packed`` keys such states from their bytes; its keys
+are compared only with keys of the same function.
 """
 
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 
 WORD_BITS = 32
@@ -67,8 +76,10 @@ def _fmix32(k: torch.Tensor) -> torch.Tensor:
     return k ^ (k >> 16)
 
 
-def _halfword_constants(W16: int, device) -> tuple:
-    """The odd multipliers c1_v, c2_v of evo_tpu's hash_halfwords."""
+@functools.lru_cache(maxsize=64)
+def _halfword_constants(W16: int, device: torch.device) -> tuple:
+    """The odd multipliers c1_v, c2_v of evo_tpu's hash_halfwords, made
+    once per width and device (some fifty small tensor ops)."""
     i = torch.arange(W16, dtype=torch.int64, device=device)
     c1 = _fmix32(_mul32(i + 1, _GOLDEN)) | 1
     c2 = _fmix32(_mul32(i + 1 + W16, _GOLDEN)) | 1
@@ -103,6 +114,77 @@ def dedup_keys(ss: torch.Tensor, exact: bool = False) -> torch.Tensor:
     when they fit in 2 (H <= 64) or exact=True, else the 64-bit hash."""
     words = _pack_words64(ss)
     if exact or words.shape[-1] <= 2:
+        return _as_int32_bits(words)
+    return _hash_words64(words)
+
+
+def pack_bits_u8(ss: torch.Tensor) -> torch.Tensor:
+    """0/1 states [..., H] -> uint8 [..., ceil(H/8)], little bit order (as
+    np.packbits(..., bitorder='little')): bit j of byte b is latent 8b + j."""
+    H = ss.shape[-1]
+    W8 = n_bytes_lane(H)
+    bits = torch.nn.functional.pad((ss != 0).to(torch.int32), (0, W8 * 8 - H))
+    weights = torch.ones(8, dtype=torch.int32, device=ss.device) << torch.arange(
+        8, dtype=torch.int32, device=ss.device)
+    return (bits.reshape(bits.shape[:-1] + (W8, 8)) * weights).sum(-1).to(torch.uint8)
+
+
+def unpack_bits_u8(packed: torch.Tensor, H: int) -> torch.Tensor:
+    """uint8 [..., ceil(H/8)] in little bit order -> bool [..., H]."""
+    shifts = torch.arange(8, dtype=torch.int32, device=packed.device)
+    bits = (packed.to(torch.int32)[..., None] >> shifts) & 1
+    return bits.reshape(packed.shape[:-1] + (-1,))[..., :H] != 0
+
+
+def n_bytes_lane(H: int) -> int:
+    return -(-H // 8)
+
+
+def pack_bits_lane(ss: torch.Tensor) -> torch.Tensor:
+    """0/1 states [..., H] -> lane-major packed uint8 [..., ceil(H/8)]."""
+    H = ss.shape[-1]
+    W8 = n_bytes_lane(H)
+    bits = torch.nn.functional.pad((ss != 0).to(torch.int32), (0, W8 * 8 - H))
+    weights = (torch.ones(8, dtype=torch.int32, device=ss.device) << torch.arange(
+        8, dtype=torch.int32, device=ss.device))[:, None]
+    # [..., j, b] holds latent j*W8 + b, which goes to bit j of byte b
+    return (bits.reshape(bits.shape[:-1] + (8, W8)) * weights).sum(-2).to(torch.uint8)
+
+
+def unpack_bits_lane(packed: torch.Tensor, H: int) -> torch.Tensor:
+    """Lane-major packed uint8 [..., ceil(H/8)] -> bool [..., H]."""
+    shifts = torch.arange(8, dtype=torch.int32, device=packed.device)[:, None]
+    bits = (packed.to(torch.int32)[..., None, :] >> shifts) & 1  # [..., 8, W8]
+    return bits.reshape(packed.shape[:-1] + (-1,))[..., :H] != 0
+
+
+def pack_bits_lane_host(ss: np.ndarray) -> np.ndarray:
+    """NumPy twin of ``pack_bits_lane`` for states made on the host."""
+    H = ss.shape[-1]
+    W8 = n_bytes_lane(H)
+    pad = W8 * 8 - H
+    if pad:
+        ss = np.concatenate([ss, np.zeros(ss.shape[:-1] + (pad,), ss.dtype)], axis=-1)
+    bits = ss.reshape(ss.shape[:-1] + (8, W8)).astype(np.uint8)
+    out = np.zeros(ss.shape[:-1] + (W8,), np.uint8)
+    for j in range(8):
+        out |= bits[..., j, :] << j
+    return out
+
+
+def dedup_keys_packed(packed: torch.Tensor, exact: bool = False) -> torch.Tensor:
+    """Keys of lane-major packed states [..., W8] from their bytes: each 4
+    bytes (W8 zero-padded to a multiple of 4) make one exact word, little
+    endian; more than 2 words are hashed to 2 unless ``exact``.  These
+    keys differ from ``dedup_keys`` of the unpacked states, so the two are
+    never compared with each other."""
+    W8 = packed.shape[-1]
+    W4 = -(-W8 // 4)
+    b = torch.nn.functional.pad(packed.to(torch.int64), (0, W4 * 4 - W8))
+    weights = torch.ones(4, dtype=torch.int64, device=packed.device) << (
+        8 * torch.arange(4, dtype=torch.int64, device=packed.device))
+    words = (b.reshape(b.shape[:-1] + (W4, 4)) * weights).sum(-1)
+    if exact or W4 <= 2:
         return _as_int32_bits(words)
     return _hash_words64(words)
 

@@ -1,8 +1,9 @@
 """BSC M-step sufficient statistics of the merged state sets.
 
-Counterpart: evo_tpu/ops/pallas_suffstat.py:bsc_suffstat_pallas (int8
-states); the CUDA kernel is csrc/bsc_suffstat.cu.  For states ss [B, S, H]
-with responsibilities rs [B, S]:
+Counterpart: evo_tpu/ops/pallas_suffstat.py:bsc_suffstat_pallas, int8
+states and lane-major packed uint8 states; the CUDA kernel is
+csrc/bsc_suffstat.cu.  For states ss [B, S, H] (or packed [B, S,
+ceil(H/8)] with H given, see ops.bitpack) with responsibilities rs [B, S]:
 
     rho[b,h] = sum_s rs ss_h,   sabs[b,s] = sum_h ss_h,
     Wq[h,k]  = sum_{b,s} rs ss_h ss_k
@@ -10,7 +11,9 @@ with responsibilities rs [B, S]:
 ``bsc_suffstat`` runs the kernel on a CUDA tensor and the plain version
 ``bsc_suffstat_plain`` on a CPU tensor; nothing falls back from one to the
 other.  The kernel sums Wq in a fixed order, so it is the same from run to
-run.
+run.  The mode follows the states' dtype (uint8: packed), and each mode
+counts its own launches: ``bsc_suffstat.launches`` (int8),
+``bsc_suffstat.packed_launches``.
 """
 
 from __future__ import annotations
@@ -18,27 +21,45 @@ from __future__ import annotations
 import torch
 
 from evo_tpu_torch.ops import _build
+from evo_tpu_torch.ops.bitpack import n_bytes_lane, unpack_bits_lane
 
 ROWS_PER_CHUNK = 1024  # state rows per pass-1 chunk (whole datapoints)
 
 
-def bsc_suffstat_plain(ss, rs):
+def _width(ss, H):
+    """H of the states, which packed states must be given."""
+    if ss.dtype != torch.uint8:
+        return ss.shape[-1] if H is None else H
+    if H is None:
+        raise ValueError("bsc_suffstat: packed states need H")
+    return H
+
+
+def bsc_suffstat_plain(ss, rs, H: int = None):
     """Plain PyTorch version of the kernel: (rho [B, H], sabs [B, S],
     Wq [H, H]), all f32."""
-    H = ss.shape[-1]
+    H = _width(ss, H)
+    if ss.dtype == torch.uint8:
+        ss = unpack_bits_lane(ss, H)
     sf = ss.to(rs.dtype)
     w = rs[..., None] * sf
     return w.sum(dim=1), sf.sum(dim=-1), w.reshape(-1, H).T @ sf.reshape(-1, H)
 
 
-def bsc_suffstat(ss, rs):
-    """ss: int8 0/1 [B, S, H]; rs: f32 [B, S].  Returns (rho, sabs, Wq)."""
+def bsc_suffstat(ss, rs, H: int = None):
+    """ss: int8 0/1 [B, S, H] or lane-major packed uint8 [B, S, ceil(H/8)]
+    (then H is required); rs: f32 [B, S].  Returns (rho, sabs, Wq)."""
     if ss.device.type == "cpu":
-        return bsc_suffstat_plain(ss, rs)
-    B, S, H = ss.shape
+        return bsc_suffstat_plain(ss, rs, H)
+    H = _width(ss, H)
+    B, S, Win = ss.shape
     dev = ss.device
-    if ss.dtype != torch.int8:
-        raise TypeError(f"bsc_suffstat: states must be int8, got {ss.dtype}")
+    packed = ss.dtype == torch.uint8
+    if not (packed or ss.dtype == torch.int8):
+        raise TypeError(f"bsc_suffstat: states must be int8 or packed uint8, got {ss.dtype}")
+    if Win != (n_bytes_lane(H) if packed else H):
+        raise ValueError(f"bsc_suffstat: states {tuple(ss.shape)} ({ss.dtype}) do not match "
+                         f"H={H}")
     if rs.device != dev or rs.dtype != torch.float32 or tuple(rs.shape) != (B, S):
         raise ValueError(f"bsc_suffstat: rs must be f32 {(B, S)} on {dev}, got "
                          f"{rs.dtype} {tuple(rs.shape)} on {rs.device}")
@@ -52,13 +73,17 @@ def bsc_suffstat(ss, rs):
     sabs = torch.empty((B, S), dtype=torch.float32, device=dev)
     wq = torch.empty((H, H), dtype=torch.float32, device=dev)
     partial = torch.empty((n_chunks, H, H), dtype=torch.float32, device=dev)
-    fn = _build.entry("evo_bsc_suffstat")
+    fn = _build.entry("evo_bsc_suffstat_packed" if packed else "evo_bsc_suffstat")
     err = fn(ss.data_ptr(), rs.data_ptr(), rho.data_ptr(), sabs.data_ptr(),
              wq.data_ptr(), partial.data_ptr(), B, S, H, chunk,
              torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "bsc_suffstat")
-    bsc_suffstat.launches += 1
+    if packed:
+        bsc_suffstat.packed_launches += 1
+    else:
+        bsc_suffstat.launches += 1
     return rho, sabs, wq
 
 
 bsc_suffstat.launches = 0
+bsc_suffstat.packed_launches = 0

@@ -31,12 +31,16 @@ class EAConfig:
     exact: bool = False
     # number of blocks the batch is split into inside em_step
     n_blocks: int = 1
-    # bit-packed K^(n) storage (not ported yet: em_step raises)
+    # K^(n) stored lane-major bit-packed (uint8, 8x smaller; ops.bitpack)
     packed_states: bool = False
-    # merge mode (reference vary_Kn params, utils.py:242-243); only the
-    # default unification merge is ported (em_step raises otherwise)
+    # merge mode (reference vary_Kn params, utils.py:242-243): unification
+    # merges the best children into K^(n); without it the children replace
+    # the whole set, unconditionally or (reject_worse) only if the summed
+    # lpj does not fall (utils.py:325-335)
     unification: bool = True
     reject_worse: bool = True
+    # slot-stable unification merge (vary_Kn_swap): the same K^(n) set, the
+    # surviving rows keep their slots
     swap_merge: bool = False
 
     def __post_init__(self):

@@ -2,7 +2,8 @@
 
 Counterpart: evo_tpu/variational/state_init.py:26-221.  The draws run on the
 host with NumPy exactly as in evo_tpu, so the same seed gives the same
-initial states in both packages; the result is moved to the device as int8.
+initial states in both packages; the result is moved to the device as int8,
+or with ``packed_states`` as lane-major packed uint8 (ops.bitpack).
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ import numpy as np
 import torch
 
 from evo_tpu_torch._device import resolve_device
+from evo_tpu_torch.ops.bitpack import pack_bits_lane_host
 from evo_tpu_torch.variational.config import EAConfig
 
 
@@ -22,7 +24,8 @@ from evo_tpu_torch.variational.config import EAConfig
 class EState:
     """Per-datapoint truncated posterior state, blocked like ``Data``.
 
-    ss:  int8 0/1 [nb, B, S, H] — the state sets K^(n)
+    ss:  int8 0/1 [nb, B, S, H] — the state sets K^(n); with
+         ``EAConfig.packed_states`` lane-major packed uint8 [nb, B, S, ceil(H/8)]
     lpj: float [nb, B, S_perm + S] — their log-pseudo-joints
     """
 
@@ -131,6 +134,7 @@ def init_states(
     seed: int = 0,
     n_blocks: int = 1,
     dtype=torch.float32,
+    packed_states: bool = False,
     unification: bool = True,
     reject_worse: bool = True,
     device=None,
@@ -139,8 +143,9 @@ def init_states(
 
     Defaults as in the reference (utils.py:155-228): p_init_Kn = 1/H,
     Mprime = S, permanent states off.  S == 2^H_ switches to exact E-steps:
-    K^(n) is the full state enumeration and the EA is off.  ``device``
-    None means the CUDA card."""
+    K^(n) is the full state enumeration and the EA is off.
+    ``packed_states`` stores the states lane-major bit-packed, as evo_tpu
+    does.  ``device`` None means the CUDA card."""
     dev = resolve_device(device)
     H_ = H - 1 if background else H
     exact = S == 2**H_ and not background
@@ -150,7 +155,8 @@ def init_states(
         mutation_algorithm=mutation_algorithm, bitflip_prob=bitflip_prob,
         Mprime=Mprime, allzero=allzero and not background,
         background=background, exact=exact, n_blocks=n_blocks,
-        unification=unification, reject_worse=reject_worse,
+        packed_states=packed_states, unification=unification,
+        reject_worse=reject_worse,
     )
     if exact:
         if H_ >= 12:
@@ -169,8 +175,9 @@ def init_states(
         raise ValueError("n_blocks must divide N (after padding)")
     B = N // n_blocks
     ss = np.ascontiguousarray(ss.reshape(n_blocks, B, ss.shape[1], ss.shape[2]))
+    ss = pack_bits_lane_host(ss) if packed_states else ss.view(np.int8)
     estate = EState(
-        ss=torch.from_numpy(ss.view(np.int8)).to(dev),
+        ss=torch.from_numpy(ss).to(dev),
         lpj=torch.zeros((n_blocks, B, cfg.S_perm + cfg.S), dtype=dtype, device=dev),
     )
     return cfg, estate

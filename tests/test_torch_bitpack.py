@@ -77,3 +77,28 @@ def test_batched_dup_matches_vmapped_reference():
     keys_j = jbp.dedup_keys(jnp.asarray(ss))
     got = tbp.dup_within(tbp.dedup_keys(torch.from_numpy(ss.astype(np.int8)))).numpy()
     np.testing.assert_array_equal(got, np.asarray(jax.vmap(jbp.dup_within)(keys_j)))
+
+
+@pytest.mark.parametrize("H", [8, 12, 32, 64, 100, 256])
+def test_lane_and_u8_packing_and_packed_keys_bit_identical(H):
+    """Lane-major and little-endian byte packing, their unpacking, the host
+    packer and dedup_keys_packed (exact words for W8 <= 8 bytes, else the
+    hash; and with exact=True) equal evo_tpu's, ragged H included."""
+    ss = _states(H, seed=H + 1)
+    t = torch.from_numpy(ss.astype(np.int8))
+    lane = tbp.pack_bits_lane(t)
+    want = np.asarray(jbp.pack_bits_lane(jnp.asarray(ss)))
+    assert lane.dtype == torch.uint8 and tuple(lane.shape) == (64, 9, tbp.n_bytes_lane(H))
+    np.testing.assert_array_equal(lane.numpy(), want)
+    np.testing.assert_array_equal(tbp.pack_bits_lane_host(ss), jbp.pack_bits_lane_host(ss))
+    np.testing.assert_array_equal(tbp.pack_bits_lane_host(ss), want)
+    np.testing.assert_array_equal(tbp.unpack_bits_lane(lane, H).numpy(), ss)
+    u8 = tbp.pack_bits_u8(t)
+    np.testing.assert_array_equal(u8.numpy(), np.asarray(jbp.pack_bits_u8(jnp.asarray(ss))))
+    np.testing.assert_array_equal(u8.numpy(), np.packbits(ss, axis=-1, bitorder="little"))
+    np.testing.assert_array_equal(tbp.unpack_bits_u8(u8, H).numpy(), ss)
+    for exact in (False, True):
+        got = _u32(tbp.dedup_keys_packed(lane, exact=exact))
+        np.testing.assert_array_equal(
+            got, np.asarray(jbp.dedup_keys_packed(jnp.asarray(want), exact=exact)))
+    assert got.shape[-1] == -(-tbp.n_bytes_lane(H) // 4)

@@ -183,9 +183,12 @@ def test_entry_points_need_a_card_unless_cpu_is_asked(monkeypatch):
 
 
 def test_unported_paths_raise():
-    """Incomplete data without reconstruction raise evo_tpu's ValueError;
-    packed and permanent states and the other merges are not ported."""
-    Y = np.ones((8, 4), np.float32)
+    """Incomplete data without reconstruction raise evo_tpu's ValueError,
+    as evo_tpu's em_step does; nothing else raises now: packed and
+    permanent states and the other merges run (tests/test_torch_eopts.py
+    and tests/test_torch_packed.py hold them against evo_tpu)."""
+    rng = np.random.default_rng(0)
+    Y = rng.normal(size=(8, 4)).astype(np.float32)
     full = make_data(Y, device="cpu")
     Y[0, 0] = np.nan
     data = make_data(Y, device="cpu")
@@ -197,9 +200,12 @@ def test_unported_paths_raise():
         JBSC(D=4, H=3).em_step(None, None, j_make_data(Y), jax.random.key(0), None)
     for change in (dict(packed_states=True), dict(allzero=True), dict(background=True),
                    dict(swap_merge=True), dict(unification=False)):
-        with pytest.raises(NotImplementedError):
-            model.em_step(None, estate, full, torch.Generator(),
-                          dataclasses.replace(cfg, **change), do_reconstruction=True)
+        cfg_c, estate_c = init_states(N=8, S=2, H=3, no_parents=2, device="cpu", **{
+            k: v for k, v in change.items() if k != "swap_merge"})
+        cfg_c = dataclasses.replace(cfg_c, **change)
+        stats = model.em_step(model.standard_init(full), estate_c, full, torch.Generator(),
+                              cfg_c, do_reconstruction=True)[2]
+        assert np.isfinite(float(stats.F)), change
 
 
 def test_package_imports_without_jax_or_evo_tpu():

@@ -17,16 +17,22 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+from evo_tpu.ops import bitpack as jbp
 from evo_tpu.variational import mutation as jmut
 from evo_tpu.variational import selection as jsel
 from evo_tpu.variational.config import EAConfig as JEAConfig
 from evo_tpu.variational.evolve import evolve_states_block as j_evolve
 from evo_tpu.variational.varykn import vary_Kn as j_vary_Kn
+from evo_tpu.variational.varykn import vary_Kn_swap as j_vary_Kn_swap
+from evo_tpu.variational.varykn import vary_Kn_whole_set as j_whole_set
+from evo_tpu_torch.ops import bitpack as tbp
 from evo_tpu_torch.variational import mutation as tmut
 from evo_tpu_torch.variational import selection as tsel
 from evo_tpu_torch.variational.config import EAConfig
 from evo_tpu_torch.variational.evolve import evolve_states_block as t_evolve
 from evo_tpu_torch.variational.varykn import _prune_to_mprime, vary_Kn as t_vary_Kn
+from evo_tpu_torch.variational.varykn import vary_Kn_swap as t_vary_Kn_swap
+from evo_tpu_torch.variational.varykn import vary_Kn_whole_set as t_whole_set
 
 FLOOR = float(np.finfo(np.float32).min)
 
@@ -133,44 +139,61 @@ def test_prune_to_mprime_keeps_later_better_child():
     np.testing.assert_array_equal(got, [[-np.inf] * 3 + [-2.0, -1.0, -np.inf]])
 
 
-def _int_lpj_fns(H, seed):
+def _int_lpj_fns(H, seed, packed=False):
     """An lpj with integer values: exact in f32 on both sides, so the
-    fitness values the next generation selects on are identical."""
+    fitness values the next generation selects on are identical.  With
+    ``packed`` the states come lane-major packed and are unpacked first."""
     w = np.random.default_rng(seed).integers(-5, 6, H).astype(np.float32)
 
     def j_fn(states):
+        if packed:
+            states = jbp.unpack_bits_lane(states, H)
         return (states.astype(jnp.float32) @ jnp.asarray(w)) - 20.0, None, ()
 
     def t_fn(states):
+        if packed:
+            states = tbp.unpack_bits_lane(states, H)
         return states.to(torch.float32) @ torch.from_numpy(w) - 20.0, None, torch.zeros(3)
 
     return j_fn, t_fn
 
 
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("perm", [None, "allzero", "background"])
 @pytest.mark.parametrize("alg,sel,H", [("randflip", "fit", 12), ("sparseflip", "rand", 12),
                                        ("cross_randflip", "fit", 70)])
-def test_evolve_states_block_bookkeeping_exact(alg, sel, H):
+def test_evolve_states_block_bookkeeping_exact(alg, sel, H, perm, packed):
+    """Children, their masked and raw lpj and new_unique equal evo_tpu's
+    on int8 and on packed states, with no permanent state, the all-zero
+    one (its key pre-seeded in the seen set, from packed zeros when
+    packed) and the background unit (mutated on H - 1 units, then set)."""
     B, S = 24, 8
     kw = dict(S=S, H=H, n_parents=4, n_children=2, n_generations=2,
               parent_selection=sel, mutation_algorithm=alg,
-              bitflip_prob=0.1 if "sparse" in alg else None)
+              bitflip_prob=0.1 if "sparse" in alg else None,
+              allzero=perm == "allzero", background=perm == "background")
     jcfg, tcfg = JEAConfig(**kw), EAConfig(**kw)
     rng = np.random.default_rng(4)
     ss = (rng.random((B, S, H)) < 2.0 / H).astype(np.int8)
     ss[:, 1] = ss[:, 0]  # a duplicate inside K^(n)
-    j_fn, t_fn = _int_lpj_fns(H, seed=5)
+    if perm == "background":
+        ss[..., -1] = 1
+    if packed:
+        ss = jbp.pack_bits_lane_host(ss)
+    j_fn, t_fn = _int_lpj_fns(H, seed=5, packed=packed)
     lpj = np.asarray(j_fn(jnp.asarray(ss))[0])
     keys = _keys(B, seed=6)
     sparseness = 2.0
 
-    want = jax.jit(lambda k, s, l: j_evolve(k, s, l, j_fn, jcfg, sparseness))(
+    want = jax.jit(lambda k, s, l: j_evolve(k, s, l, j_fn, jcfg, sparseness,
+                                            packed=packed))(
         keys, jnp.asarray(ss), jnp.asarray(lpj))
 
     # the same draws as evolve.py's sel_mut: fold_in(key, g), split
     def jax_draws(k, g, n_pool):
         k_sel, k_mut = jax.random.split(jax.random.fold_in(k, g))
         return (jax.random.gumbel(k_sel, (n_pool,), jnp.float32),
-                _mutation_noise(alg, k_mut, tcfg.n_parents, tcfg.n_children, H))
+                _mutation_noise(alg, k_mut, tcfg.n_parents, tcfg.n_children, tcfg.H_mut))
 
     draws, n_pool = [], S
     for g in range(tcfg.n_generations):
@@ -184,3 +207,56 @@ def test_evolve_states_block_bookkeeping_exact(alg, sel, H):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
     new_unique = got[2].numpy()
     assert new_unique.any() and not new_unique.all()
+    children = tbp.unpack_bits_lane(got[0], H) if packed else got[0] != 0
+    if perm == "background":
+        assert bool(children[..., -1].all())
+    if perm == "allzero":  # a zero child is never new
+        assert not new_unique[children.numpy().sum(-1) == 0].any()
+
+
+@pytest.mark.parametrize("rows", ["int8", "uint8"])
+@pytest.mark.parametrize("merge", ["swap", "whole_set", "whole_set_accept_all"])
+def test_swap_and_whole_set_merges_exact(merge, rows):
+    """vary_Kn_swap (slot-stable; old states win ties, -inf duplicates never
+    enter, Mprime caps the swaps) and vary_Kn_whole_set (with and without
+    reject_worse; a tie of the summed lpj accepts, a rejection zeroes both
+    counters) against evo_tpu's, vmapped, on int8 and on packed rows.
+    Integer lpj values make every sum exact on both sides."""
+    B, S, H = 8, 6, 20
+    rng = np.random.default_rng(7)
+    T = 9 if merge == "swap" else S
+
+    def states(n):
+        if rows == "uint8":
+            return rng.integers(0, 256, (B, n, -(-H // 8))).astype(np.uint8)
+        return (rng.random((B, n, H)) < 0.3).astype(np.int8)
+
+    ss, ch = states(S), states(T)
+    lpj = rng.integers(-6, 0, (B, S)).astype(np.float32)
+    clpj = rng.integers(-6, 0, (B, T)).astype(np.float32)
+    clpj[0, :4] = -np.inf
+    clpj[1], lpj[1] = -1.0, -1.0  # all ties
+    new_unique = rng.random((B, T)) < 0.7
+    if merge != "swap":
+        clpj = rng.integers(-6, 0, (B, T)).astype(np.float32)
+        clpj[2] = lpj[2][::-1]  # equal sums: accepted
+        clpj[3] = lpj[3] - 1.0  # worse: rejected under reject_worse
+    if merge == "swap":
+        for Mprime in (S, 2):
+            want = jax.vmap(j_vary_Kn_swap, in_axes=(0, 0, 0, 0, None))(
+                jnp.asarray(ss), jnp.asarray(lpj), jnp.asarray(ch), jnp.asarray(clpj), Mprime)
+            got = t_vary_Kn_swap(_t(ss), _t(lpj), _t(ch), _t(clpj), Mprime)
+            for g, w in zip(got, want):
+                np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+            assert int(got[2][1]) == 0 and got[0].dtype == _t(ss).dtype
+        return
+    reject = merge == "whole_set"
+    want = jax.vmap(j_whole_set, in_axes=(0, 0, 0, 0, 0, None))(
+        jnp.asarray(ss), jnp.asarray(lpj), jnp.asarray(ch), jnp.asarray(clpj),
+        jnp.asarray(new_unique), reject)
+    got = t_whole_set(_t(ss), _t(lpj), _t(ch), _t(clpj), _t(new_unique), reject)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    accepted = got[4][:, 0].numpy() == S
+    assert accepted[2] and accepted[3] != reject
+    assert int(got[2][3]) == int(got[3][3]) == (0 if reject else int(new_unique[3].sum()))

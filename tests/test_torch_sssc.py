@@ -178,10 +178,11 @@ def test_sssc_convert_round_trip():
 
 def test_unported_paths_raise():
     """Incomplete data without reconstruction raise evo_tpu's ValueError;
-    packed and permanent states, the other merges, H > 128 and incomplete
-    data at H > 64 (evo_tpu's XLA path, not ported) raise
-    NotImplementedError."""
-    Y = np.ones((8, 4), np.float32)
+    H > 128 and incomplete data at H > 64 (evo_tpu's XLA path, not
+    ported) raise NotImplementedError.  Packed and permanent states and the
+    other merges run now (tests/test_torch_eopts.py and
+    tests/test_torch_packed.py hold them against evo_tpu)."""
+    Y = np.random.default_rng(0).normal(size=(8, 4)).astype(np.float32)
     model = SSSC(D=4, H=3, device="cpu")
     full = make_data(Y, device="cpu")
     cfg, estate = init_states(N=8, S=2, H=3, no_parents=2, device="cpu")
@@ -193,9 +194,12 @@ def test_unported_paths_raise():
         JSSSC(D=4, H=3).em_step(None, None, j_make_data(Y), jax.random.key(0), None)
     for change in (dict(packed_states=True), dict(allzero=True), dict(swap_merge=True),
                    dict(unification=False)):
-        with pytest.raises(NotImplementedError):
-            model.em_step(None, estate, full, torch.Generator(),
-                          dataclasses.replace(cfg, **change))
+        cfg_c, estate_c = init_states(N=8, S=2, H=3, no_parents=2, device="cpu", **{
+            k: v for k, v in change.items() if k != "swap_merge"})
+        cfg_c = dataclasses.replace(cfg_c, **change)
+        stats = model.em_step(model.standard_init(full), estate_c, full, torch.Generator(),
+                              cfg_c)[2]
+        assert np.isfinite(float(stats.F)), change
     for H, data in ((129, full), (65, incomplete)):
         wide = SSSC(D=4, H=H, device="cpu")
         _, wstate = init_states(N=8, S=2, H=H, no_parents=2, device="cpu")
