@@ -48,8 +48,14 @@ Phases, one line each with its seconds:
 The kernels phase also holds the ES3C kernels, the masked ones (incomplete
 data) included, against their plain versions at those paths' shapes, and
 the packed-input EBSC kernels against their plain versions and, bit for
-bit, against the int8 kernels on the same states.  Then a JSON line with
-the kernels' numbers and, last, the result line.
+bit, against the int8 kernels on the same states, and the EBSC lpj at the
+ends of the density range (rows with no bit or every bit on, one dense row
+in a sparse group, a ragged H = 100, H = 1024) with its time on states at
+the EA's sparsity only and on states all half on.  Every kernel's time
+(`ms`) is that of a call, by CUDA events around calls; the EBSC lpj's also
+has its device time (`device_ms`, calls replayed from a CUDA graph, so the
+host's launch cost is left out).  Then a JSON line with the kernels'
+numbers and, last, the result line.
 
 Any failed check raises and the script exits non-zero; it also exits
 non-zero without a result when no CUDA card is present.  The whole run is
@@ -104,6 +110,9 @@ PEAKS = {"NVIDIA H100 80GB HBM3": (67e12, 16.75e12, 3.35e12),
 N_BLOCKS, B, H, S, D = 25, 4096, 256, 64, 256
 N_PARENTS, N_CHILDREN, N_GENERATIONS = 10, 1, 1
 WARM_EPOCHS, TIMED_EPOCHS = 1, 3
+# the kernels of evo_tpu_torch/csrc, as the profiler names them
+PORT_KERNELS = ("bsc_lpj_kernel", "bsc_lpj_dense", "suffstat_partial", "suffstat_reduce",
+                "sssc_lpj_kernel", "sssc_lpj_masked_kernel", "sssc_suffstat_partial")
 # bench.py's two ES3C configurations: its N = 65,536 benchmark
 # (bench.py:181-191) and the reference's feature-learning default
 # (bench.py:233-243, with slab noise in its data); each (n_blocks, B, D, H,
@@ -184,6 +193,24 @@ def cuda_ms(fn, reps=10, warm=2):
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(fn, reps=10):
+    """Mean time of fn() on the card with the host's launch cost left out:
+    `reps` calls captured in one CUDA graph, replayed between CUDA events."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def bound_ms(f32_ops, int_ops, nbytes):
     """Least time for the work on this card: the larger of the operations
     (f32 and int32 pipes taken as running side by side) and the bytes."""
@@ -234,14 +261,20 @@ def dense_f32_ms(flops):
     return 1e3 * flops / peaks(CARD["name"])[0]
 
 
-def lpj_inputs(Bk, K, Hk, gen, device):
+def lpj_inputs(Bk, K, Hk, gen, device, dense=64):
     """Random inputs at main-path scale: states at the EA's sparsity
-    (about 2 bits on), the first 64 datapoints' rows dense (half on)."""
+    (about 2 bits on), the first ``dense`` datapoints' rows dense (half on)."""
     p = torch.full((Bk, 1, 1), 2.0 / Hk)
-    p[:64] = 0.5
+    p[:dense] = 0.5
     ss = (torch.rand(Bk, K, Hk, generator=gen) < p).to(torch.int8)
-    W = torch.randn(D, Hk, generator=gen)
-    y = torch.randn(Bk, D, generator=gen) * 2
+    return lpj_args(ss, gen, device)
+
+
+def lpj_args(ss, gen, device):
+    """bsc_lpj's arguments for int8 states ss [B, K, H]: random data of
+    width D under a random W, and the main path's pre1 and pil_bar."""
+    W = torch.randn(D, ss.shape[-1], generator=gen)
+    y = torch.randn(ss.shape[0], D, generator=gen) * 2
     return [t.to(device) for t in (ss, y @ W, (y * y).sum(-1), W.T @ W,
                                    torch.tensor(-0.5), torch.tensor(-5.54))]
 
@@ -273,15 +306,16 @@ def check_kernels(device):
                 raise AssertionError(f"bsc_lpj H={Hk} K={K} emit={emit}: max err "
                                      f"{err.max().item():.3g} over tolerance")
             ms = cuda_ms(lambda: bsc_lpj(*args, emit_keys=emit))
+            dev_ms = graph_ms(lambda: bsc_lpj(*args, emit_keys=emit))
             plain = cuda_ms(lambda: bsc_lpj_plain(*args, emit_keys=emit))
             bnd, by = lpj_bound(args[0], emit)
             dense = dense_f32_ms(2.0 * B * K * Hk * Hk + 4.0 * B * K * Hk)
             say(f"bsc_lpj H={Hk} K={K} keys={emit}: max_abs_err {err.max().item():.3g} "
-                f"{ms:.4f} ms, plain {plain:.4f} ms, bound {bnd:.4f} ms ({by}), "
-                f"dense f32 {dense:.4f} ms")
+                f"{ms:.4f} ms (device {dev_ms:.4f} ms), plain {plain:.4f} ms, bound {bnd:.4f} ms "
+                f"({by}), dense f32 {dense:.4f} ms")
             if (Hk, K, emit) == (256, 64, True):  # the K^(n) launch of the main path
-                rows["bsc_lpj"] = dict(max_abs_err=err.max().item(), ms=ms, plain_ms=plain,
-                                       bound_ms=bnd, bound_by=by)
+                rows["bsc_lpj"] = dict(max_abs_err=err.max().item(), ms=ms, device_ms=dev_ms,
+                                       plain_ms=plain, bound_ms=bnd, bound_by=by)
 
     p = torch.full((B, 1, 1), 2.0 / H)
     p[:64] = 0.5
@@ -339,14 +373,16 @@ def check_packed_kernels(device, gen):
                 raise AssertionError(f"bsc_lpj packed H={Hk} K={K} emit={emit}: max err "
                                      f"{err.max().item():.3g} over tolerance")
             ms = cuda_ms(lambda: bsc_lpj(pk, *args[1:], emit_keys=emit))
+            dev_ms = graph_ms(lambda: bsc_lpj(pk, *args[1:], emit_keys=emit))
             plain = cuda_ms(lambda: bsc_lpj_plain(pk, *args[1:], emit_keys=emit))
             bnd, by = lpj_bound(args[0], emit, packed=True)
             say(f"bsc_lpj packed H={Hk} K={K} keys={emit}: bit-identical to int8, max_abs_err "
-                f"{err.max().item():.3g}; {ms:.4f} ms, plain {plain:.4f} ms, bound {bnd:.4f} ms "
-                f"({by})")
+                f"{err.max().item():.3g}; {ms:.4f} ms (device {dev_ms:.4f} ms), plain "
+                f"{plain:.4f} ms, bound {bnd:.4f} ms ({by})")
             if (Hk, K, emit) == (256, 64, False):  # the K^(n) launch of main_packed
                 rows["bsc_lpj_packed"] = dict(max_abs_err=err.max().item(), ms=ms,
-                                              plain_ms=plain, bound_ms=bnd, bound_by=by)
+                                              device_ms=dev_ms, plain_ms=plain, bound_ms=bnd,
+                                              bound_by=by)
 
     for Hk in (256, 100, 64):
         p = torch.full((B, 1, 1), 2.0 / Hk)
@@ -376,6 +412,81 @@ def check_packed_kernels(device, gen):
             rows["bsc_suffstat_packed"] = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain,
                                                bound_ms=bnd, bound_by=by)
     return rows
+
+
+def check_lpj_case(label, args):
+    """bsc_lpj on int8 states and on their packed bytes, in both emit_keys
+    settings: each within lpj_tolerance of the plain version with keys
+    equal, and the packed mode bit for bit the int8 mode.  Returns the
+    largest error."""
+    pk = pack_bits_lane(args[0])
+    tol = lpj_tolerance(*args)
+    worst = 0.0
+    for emit in (False, True):
+        got = bsc_lpj(*args, emit_keys=emit)
+        got_pk = bsc_lpj(pk, *args[1:], emit_keys=emit)
+        want = bsc_lpj_plain(*args, emit_keys=emit)
+        torch.cuda.synchronize()
+        if emit:
+            (got, gk), (got_pk, pkk), (want, wk) = got, got_pk, want
+            if not (torch.equal(gk, wk) and torch.equal(pkk, wk)):
+                raise AssertionError(f"bsc_lpj {label}: keys differ")
+        if not torch.equal(got_pk, got):
+            raise AssertionError(f"bsc_lpj {label} emit={emit}: packed not bit-identical to int8")
+        err = (got.double() - want.double()).abs()
+        if not bool((err <= tol).all()):
+            raise AssertionError(f"bsc_lpj {label} emit={emit}: max err "
+                                 f"{err.max().item():.3g} over tolerance")
+        worst = max(worst, err.max().item())
+    return worst
+
+
+def check_lpj_densities(device, gen):
+    """The active-bits lpj kernel at the ends of the density range, each
+    case as check_lpj_case: rows with no bit on, rows with every bit on,
+    one dense row among sparse ones in a 32-row group, a ragged H = 100,
+    H = MAX_H, and dense rows with G at an offset of one float (not 16-byte
+    aligned); then its time on states at the EA's sparsity only (the main
+    path's two launch shapes) and on states all half on."""
+    cases = []
+    for Hk in (40, 256):
+        cases.append((f"no bit on H={Hk}", torch.zeros(256, 8, Hk, dtype=torch.int8)))
+        cases.append((f"every bit on H={Hk}", torch.ones(256, 8, Hk, dtype=torch.int8)))
+    for Hk, fill in ((256, 0.5), (256, 1.0), (100, 0.5), (1024, 0.5)):
+        ss = (torch.rand(256, 8, Hk, generator=gen) < 2.0 / Hk).to(torch.int8)
+        ss[4, 3] = (torch.rand(Hk, generator=gen) < fill).to(torch.int8)  # row 35: group 1
+        cases.append((f"one dense row ({fill}) in a sparse group H={Hk}", ss))
+    cases.append(("int8 ragged H=100", (torch.rand(512, 16, 100, generator=gen)
+                                        < torch.rand(512, 1, 1, generator=gen)).to(torch.int8)))
+    cases.append(("H=1024", (torch.rand(64, 16, 1024, generator=gen)
+                             < torch.rand(64, 1, 1, generator=gen)).to(torch.int8)))
+    for label, ss in cases:
+        err = check_lpj_case(label, lpj_args(ss, gen, device))
+        say(f"bsc_lpj {label}: plain within tolerance, keys equal, packed bit-identical, "
+            f"max_abs_err {err:.3g}")
+    args = lpj_inputs(256, 8, H, gen, device, dense=8)
+    G = torch.empty(H * H + 1, device=device)[1:].view(H, H)
+    G.copy_(args[3])
+    args[3] = G
+    err = check_lpj_case("G offset", args)
+    say(f"bsc_lpj dense rows, G at an offset of one float H={H}: plain within tolerance, "
+        f"keys equal, packed bit-identical, max_abs_err {err:.3g}")
+
+    for K, dense, what in ((64, 0, "EA sparsity only"), (10, 0, "EA sparsity only"),
+                           (64, B, "all half on")):
+        args = lpj_inputs(B, K, H, gen, device, dense=dense)
+        err = check_lpj_case(f"{what} K={K}", args)
+        pk = pack_bits_lane(args[0])
+        ms = cuda_ms(lambda: bsc_lpj(*args, emit_keys=True))
+        dev_ms = graph_ms(lambda: bsc_lpj(*args, emit_keys=True))
+        ms_pk = cuda_ms(lambda: bsc_lpj(pk, *args[1:]))
+        dev_pk = graph_ms(lambda: bsc_lpj(pk, *args[1:]))
+        bnd, by = lpj_bound(args[0], True)
+        bnd_pk, by_pk = lpj_bound(args[0], False, packed=True)
+        say(f"bsc_lpj {what} H={H} K={K}: max_abs_err {err:.3g}; int8 keys {ms:.4f} ms "
+            f"(device {dev_ms:.4f} ms, bound {bnd:.4f} ms, {by}); packed {ms_pk:.4f} ms "
+            f"(device {dev_pk:.4f} ms, bound {bnd_pk:.4f} ms, {by_pk}); dense f32 "
+            f"{dense_f32_ms(2.0 * B * K * H * H):.4f} ms")
 
 
 def sssc_inputs(Bk, K, Hk, gen, device):
@@ -949,7 +1060,9 @@ def profile_epoch(model, params, estate, data, gen, cfg, median_ms, do_reconstru
     """One more epoch under torch.profiler (device activity only, to keep
     its host overhead small): its wall time, the summed time of its kernels
     (one stream, so they do not overlap), the idle share of its wall time,
-    and the heaviest kernels by device time."""
+    the heaviest kernels by device time, and the port's own kernels among
+    the rest (bsc_lpj_dense, for one, which finds no dense row on the main
+    path)."""
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
         model.em_step(params, estate, data, gen, cfg, do_reconstruction=do_reconstruction)
@@ -961,8 +1074,12 @@ def profile_epoch(model, params, estate, data, gen, cfg, median_ms, do_reconstru
         raise AssertionError("the profiler saw no kernel time on the card")
     say(f"profiled epoch: wall {wall:.1f} ms, kernels {dev:.1f} ms, idle share "
         f"{1 - dev / wall:.3f} (kernels over the unprofiled median: {dev / median_ms:.3f})")
-    for e in sorted(evts, key=_device_us, reverse=True)[:8]:
+    ranked = sorted(evts, key=_device_us, reverse=True)
+    for e in ranked[:8]:
         say(f"  {_device_us(e) / 1e3:8.2f} ms {e.count:5d}x {e.key[:70]}")
+    for e in ranked[8:]:
+        if any(f"::{name}" in e.key for name in PORT_KERNELS):
+            say(f"  {_device_us(e) / 1e3:8.4f} ms {e.count:5d}x {e.key[:70]} (a port kernel)")
 
 
 def drive(setup, launches, expect, profile=False, do_reconstruction=False,
@@ -1145,6 +1262,7 @@ def main():
         rows.update(check_sssc_kernels(DEVICE, torch.Generator().manual_seed(1)))
         rows.update(check_masked_kernels(DEVICE, torch.Generator().manual_seed(2)))
         rows.update(check_packed_kernels(DEVICE, torch.Generator().manual_seed(3)))
+        check_lpj_densities(DEVICE, torch.Generator().manual_seed(4))
     with Phase("exact"):
         exact_epoch(launches)
     with Phase("main"):

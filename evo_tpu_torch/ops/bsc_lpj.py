@@ -8,6 +8,10 @@ Gram G [H, H]:
 
     lpj[b,k] = pre1 * (y2[b] - 2 s.Wty[b] + s^T G s) + pil_bar * |s|
 
+The kernel sums only what each state's active latents select: s^T G s
+over the pairs of active latents, s.Wty over the active latents, |s| by
+popcount.
+
 With ``emit_keys`` it also returns the dedup keys [B, K, W] of
 ``ops.bitpack.dedup_keys`` of the unpacked states (uint32 bit patterns in
 int32): W = ceil(H/32) exact words for H <= 64, else the 2-word hash.  As
@@ -27,7 +31,7 @@ import torch
 from evo_tpu_torch.ops import _build
 from evo_tpu_torch.ops.bitpack import dedup_keys, n_bytes_lane, n_words, unpack_bits_lane
 
-MAX_H = 1024  # the kernel stages a 64-row tile and a 32-column G chunk
+MAX_H = 1024  # the kernel keeps a state's mask in at most 32 words, one a lane of a warp
 
 
 def key_words(H: int) -> int:

@@ -1,6 +1,8 @@
 """The port's lpj (its plain PyTorch version, which the CUDA kernel is held
 to on the card) against evo_tpu's Pallas kernel in interpret mode, in both
-``emit_keys`` modes, on int8 and on lane-major packed uint8 states.
+``emit_keys`` modes, on int8 and on lane-major packed uint8 states; the
+int8 cases include a ragged H = 100 and the density extremes that the
+kernel's card checks use (states with no bit or every bit on).
 
 Tolerance: both sides compute the same f32 Gram-form sum in different
 orders, so each lpj may differ by a few f32 roundings of the magnitudes it
@@ -23,10 +25,15 @@ from evo_tpu_torch.ops.bsc_lpj import bsc_lpj, key_words
 PRE1, PIL = -0.4, -1.5
 
 
-def _problem(H, B, K, p, seed):
+def _problem(H, B, K, p, seed, fill=None):
+    """Random states at density p with one dense row, or with fill
+    "no bit on" / "every bit on" states that have none or all of their bits
+    on."""
     rng = np.random.default_rng(seed)
     ss = (rng.random((B, K, H)) < p).astype(np.int8)
     ss[0, 0] = 1  # a dense row
+    if fill is not None:
+        ss[:] = {"no bit on": 0, "every bit on": 1}[fill]
     W = rng.standard_normal((H, H)).astype(np.float32)
     G = W.T @ W
     Wty = (rng.standard_normal((B, H)) * 3).astype(np.float32)
@@ -41,10 +48,15 @@ def _scale(ss, Wty, y2, G):
     return abs(PRE1) * (y2[:, None] + 2 * sW + sGs) + abs(PIL) * sf.sum(-1)
 
 
-@pytest.mark.parametrize("H", [40, 64, 256])
+@pytest.mark.parametrize("H,fill", [
+    pytest.param(40, None, id="40"), pytest.param(64, None, id="64"),
+    pytest.param(256, None, id="256"), pytest.param(100, None, id="100"),  # ragged H
+    *(pytest.param(H, fill, id=f"{H}-{fill.replace(' ', '_')}")
+      for H in (40, 256) for fill in ("no bit on", "every bit on")),
+])
 @pytest.mark.parametrize("emit_keys", [False, True])
-def test_plain_lpj_matches_pallas_interpret(H, emit_keys):
-    ss, Wty, y2, G = _problem(H, B=128, K=10, p=0.15, seed=H)
+def test_plain_lpj_matches_pallas_interpret(H, fill, emit_keys):
+    ss, Wty, y2, G = _problem(H, B=128, K=10, p=0.15, seed=H, fill=fill)
     want = bsc_lpj_pallas(jnp.asarray(ss), jnp.asarray(Wty), jnp.asarray(y2),
                           jnp.asarray(G), jnp.float32(PRE1), jnp.float32(PIL),
                           interpret=True, emit_keys=emit_keys)
