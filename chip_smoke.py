@@ -48,14 +48,17 @@ Phases, one line each with its seconds:
 The kernels phase also holds the ES3C kernels, the masked ones (incomplete
 data) included, against their plain versions at those paths' shapes, and
 the packed-input EBSC kernels against their plain versions and, bit for
-bit, against the int8 kernels on the same states, and the EBSC lpj at the
-ends of the density range (rows with no bit or every bit on, one dense row
-in a sparse group, a ragged H = 100, H = 1024) with its time on states at
-the EA's sparsity only and on states all half on.  Every kernel's time
-(`ms`) is that of a call, by CUDA events around calls; the EBSC lpj's also
-has its device time (`device_ms`, calls replayed from a CUDA graph, so the
-host's launch cost is left out).  Then a JSON line with the kernels'
-numbers and, last, the result line.
+bit, against the int8 kernels on the same states, and both EBSC kernels at
+the ends of their density range (rows with no bit or every bit on, one
+dense row among sparse ones, a ragged H = 100, H = 1024; the suffstat also
+H = 10 with S = 1024, H = 32 and 40, a B that fills no whole unit, rows
+with rs exactly 0, the bsc_inpaint block, and two launches bit for bit
+alike) with their times on states at the EA's sparsity only and on states
+all half on, the suffstat's beside Wq's dense product in cuBLAS.  Every
+kernel's time (`ms`) is that of a call, by CUDA events around calls; the
+EBSC kernels' also have their device time (`device_ms`, calls replayed
+from a CUDA graph, so the host's launch cost is left out).  Then a JSON
+line with the kernels' numbers and, last, the result line.
 
 Any failed check raises and the script exits non-zero; it also exits
 non-zero without a result when no CUDA card is present.  The whole run is
@@ -111,8 +114,9 @@ N_BLOCKS, B, H, S, D = 25, 4096, 256, 64, 256
 N_PARENTS, N_CHILDREN, N_GENERATIONS = 10, 1, 1
 WARM_EPOCHS, TIMED_EPOCHS = 1, 3
 # the kernels of evo_tpu_torch/csrc, as the profiler names them
-PORT_KERNELS = ("bsc_lpj_kernel", "bsc_lpj_dense", "suffstat_partial", "suffstat_reduce",
-                "sssc_lpj_kernel", "sssc_lpj_masked_kernel", "sssc_suffstat_partial")
+PORT_KERNELS = ("bsc_lpj_kernel", "bsc_lpj_dense", "bsc_suffstat_partial", "bsc_suffstat_reduce",
+                "sssc_lpj_kernel", "sssc_lpj_masked_kernel", "sssc_suffstat_partial",
+                "suffstat_reduce")
 # bench.py's two ES3C configurations: its N = 65,536 benchmark
 # (bench.py:181-191) and the reference's feature-learning default
 # (bench.py:233-243, with slab noise in its data); each (n_blocks, B, D, H,
@@ -323,22 +327,32 @@ def check_kernels(device):
     rs = torch.softmax(torch.randn(B, S, generator=gen) * 3, -1).to(device)
     got, want = bsc_suffstat(ss, rs), bsc_suffstat_plain(ss, rs)
     torch.cuda.synchronize()
+    errs = suffstat_errors_bsc("H=256", got, want)
+    ms = cuda_ms(lambda: bsc_suffstat(ss, rs))
+    dev_ms = graph_ms(lambda: bsc_suffstat(ss, rs))
+    plain = cuda_ms(lambda: bsc_suffstat_plain(ss, rs))
+    bnd, by = suffstat_bound(ss)
+    dense = dense_f32_ms(2.0 * B * S * H * H + 2.0 * B * S * H)
+    say(f"bsc_suffstat H={H} S={S}: max_abs_err {max(errs):.3g} {ms:.4f} ms (device "
+        f"{dev_ms:.4f} ms), plain {plain:.4f} ms, bound {bnd:.4f} ms ({by}), dense f32 "
+        f"{dense:.4f} ms")
+    rows["bsc_suffstat"] = dict(max_abs_err=max(errs), ms=ms, device_ms=dev_ms, plain_ms=plain,
+                                bound_ms=bnd, bound_by=by)
+    return rows
+
+
+def suffstat_errors_bsc(label, got, want):
+    """rho and Wq of bsc_suffstat within relative 1e-5 of the plain
+    version's, entry by entry, and sabs equal; returns the largest absolute
+    errors."""
     errs = []
     for name, g, w, rel in zip(("rho", "sabs", "Wq"), got, want, (1e-5, 0.0, 1e-5)):
         err = (g - w).abs()
         if not bool((err <= rel * w.abs()).all()):
-            raise AssertionError(f"bsc_suffstat {name}: max err {err.max().item():.3g} "
+            raise AssertionError(f"bsc_suffstat {label} {name}: max err {err.max().item():.3g} "
                                  f"over rel {rel}")
         errs.append(err.max().item())
-    ms = cuda_ms(lambda: bsc_suffstat(ss, rs))
-    plain = cuda_ms(lambda: bsc_suffstat_plain(ss, rs))
-    bnd, by = suffstat_bound(ss)
-    dense = dense_f32_ms(2.0 * B * S * H * H + 2.0 * B * S * H)
-    say(f"bsc_suffstat H={H} S={S}: max_abs_err {max(errs):.3g} {ms:.4f} ms, "
-        f"plain {plain:.4f} ms, bound {bnd:.4f} ms ({by}), dense f32 {dense:.4f} ms")
-    rows["bsc_suffstat"] = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain,
-                                bound_ms=bnd, bound_by=by)
-    return rows
+    return errs
 
 
 def check_packed_kernels(device, gen):
@@ -390,28 +404,107 @@ def check_packed_kernels(device, gen):
         ss = (torch.rand(B, S, Hk, generator=gen) < p).to(torch.int8).to(device)
         rs = torch.softmax(torch.randn(B, S, generator=gen) * 3, -1).to(device)
         pk = pack_bits_lane(ss)
-        got, ref = bsc_suffstat(pk, rs, H=Hk), bsc_suffstat(ss, rs)
-        want = bsc_suffstat_plain(pk, rs, H=Hk)
-        torch.cuda.synchronize()
-        errs = []
-        for name, g, r, w, rel in zip(("rho", "sabs", "Wq"), got, ref, want, (1e-5, 0.0, 1e-5)):
-            if not torch.equal(g, r):
-                raise AssertionError(f"bsc_suffstat packed H={Hk} {name}: not bit-identical "
-                                     "to the int8 kernel")
-            err = (g - w).abs()
-            if not bool((err <= rel * w.abs()).all()):
-                raise AssertionError(f"bsc_suffstat packed H={Hk} {name}: max err "
-                                     f"{err.max().item():.3g} over rel {rel}")
-            errs.append(err.max().item())
+        errs = check_suffstat_case(f"mixed H={Hk}", ss, rs)
         ms = cuda_ms(lambda: bsc_suffstat(pk, rs, H=Hk))
+        dev_ms = graph_ms(lambda: bsc_suffstat(pk, rs, H=Hk))
         plain = cuda_ms(lambda: bsc_suffstat_plain(pk, rs, H=Hk))
         bnd, by = suffstat_bound(ss, packed=True)
         say(f"bsc_suffstat packed H={Hk} S={S}: bit-identical to int8, max_abs_err "
-            f"{max(errs):.3g}; {ms:.4f} ms, plain {plain:.4f} ms, bound {bnd:.4f} ms ({by})")
+            f"{max(errs):.3g}; {ms:.4f} ms (device {dev_ms:.4f} ms), plain {plain:.4f} ms, "
+            f"bound {bnd:.4f} ms ({by})")
         if Hk == H:
-            rows["bsc_suffstat_packed"] = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain,
-                                               bound_ms=bnd, bound_by=by)
+            rows["bsc_suffstat_packed"] = dict(max_abs_err=max(errs), ms=ms, device_ms=dev_ms,
+                                               plain_ms=plain, bound_ms=bnd, bound_by=by)
     return rows
+
+
+def check_suffstat_case(label, ss, rs):
+    """bsc_suffstat on int8 states ss and on their packed bytes: each within
+    suffstat_errors_bsc of the plain version, the packed mode bit for bit
+    the int8 mode, and a second int8 launch bit for bit the first.  Returns
+    the largest absolute errors (rho, sabs, Wq)."""
+    Hk = ss.shape[-1]
+    pk = pack_bits_lane(ss)
+    got, again = bsc_suffstat(ss, rs), bsc_suffstat(ss, rs)
+    got_pk = bsc_suffstat(pk, rs, H=Hk)
+    want = bsc_suffstat_plain(ss, rs)
+    torch.cuda.synchronize()
+    for name, g, a, p in zip(("rho", "sabs", "Wq"), got, again, got_pk):
+        if not torch.equal(g, a):
+            raise AssertionError(f"bsc_suffstat {label} {name}: two launches differ")
+        if not torch.equal(g, p):
+            raise AssertionError(f"bsc_suffstat {label} {name}: packed not bit-identical to int8")
+    return suffstat_errors_bsc(label, got, want)
+
+
+def suffstat_states(Bk, S_, Hk, gen, dense=64, p=None):
+    """States at the EA's sparsity (2/H bits on, or p), the first ``dense``
+    datapoints' rows half on, and softmax responsibilities."""
+    q = torch.full((Bk, 1, 1), 2.0 / Hk if p is None else p)
+    q[:dense] = 0.5
+    ss = (torch.rand(Bk, S_, Hk, generator=gen) < q).to(torch.int8)
+    rs = torch.softmax(torch.randn(Bk, S_, generator=gen) * 3, -1)
+    return ss, rs
+
+
+def check_suffstat_densities(device, gen):
+    """The active-bits suffstat kernel at the ends of its range, each case as
+    check_suffstat_case: rows with no bit or every bit on, one dense row
+    among the sparse rows of one chunk, a ragged H = 100, H = 10 (S = 1024:
+    a datapoint's rows in pieces), 32, 40 and 1024 (Wq in tiles over
+    blocks), a B that is not a multiple of a unit or a chunk, rows with rs
+    exactly 0, and the bsc_inpaint block; then its time on the mixed inputs
+    of the kernels row, on states at the EA's sparsity only and on states
+    all half on, beside Wq's dense product in cuBLAS (a yardstick only: it
+    lacks rho and sabs)."""
+    cases = []
+    for Hk in (40, 256):
+        cases.append((f"no bit on H={Hk}", torch.zeros(256, 8, Hk, dtype=torch.int8)))
+        cases.append((f"every bit on H={Hk}", torch.ones(256, 8, Hk, dtype=torch.int8)))
+    for Hk, fill in ((256, 0.5), (256, 1.0), (100, 0.5), (1024, 0.5)):
+        ss = (torch.rand(256, 8, Hk, generator=gen) < 2.0 / Hk).to(torch.int8)
+        ss[4, 3] = (torch.rand(Hk, generator=gen) < fill).to(torch.int8)
+        cases.append((f"one dense row ({fill}) among sparse rows H={Hk}", ss))
+    for label, (Bk, S_, Hk) in (("ragged H=100", (512, 16, 100)), ("H=10 S=1024", (64, 1024, 10)),
+                                ("H=32", (4096, 20, 32)), ("H=40", (1024, 64, 40)),
+                                ("H=1024", (64, 16, 1024)), ("B=4099 S=20", (4099, 20, 64)),
+                                ("B=1001 S=64", (1001, 64, 256))):
+        cases.append((label, (torch.rand(Bk, S_, Hk, generator=gen)
+                              < torch.rand(Bk, 1, 1, generator=gen)).to(torch.int8)))
+    for label, ss in cases:
+        rs = torch.softmax(torch.randn(ss.shape[:2], generator=gen) * 3, -1)
+        errs = check_suffstat_case(label, ss.to(device), rs.to(device))
+        say(f"bsc_suffstat {label}: plain within rel 1e-5 (sabs exact), packed and a second "
+            f"launch bit-identical, max_abs_err {max(errs):.3g}")
+    ss, rs = suffstat_states(B, S, H, gen)
+    rs[::7] = 0.0  # invalid datapoints
+    rs[:, S // 2:] *= (torch.rand(B, S - S // 2, generator=gen) < 0.5)  # underflowed tail
+    errs = check_suffstat_case("rs exactly 0", ss.to(device), rs.to(device))
+    say(f"bsc_suffstat rows with rs exactly 0: within tolerance, bit-identical, max_abs_err "
+        f"{max(errs):.3g}")
+    ss, rs = suffstat_states(INPAINT_N, INPAINT_S, INPAINT_H, gen, dense=0, p=0.1)
+    errs = check_suffstat_case("bsc_inpaint block", ss.to(device), rs.to(device))
+    say(f"bsc_suffstat bsc_inpaint block {tuple(ss.shape)}: within tolerance, bit-identical, "
+        f"max_abs_err {max(errs):.3g}")
+    del ss, rs
+
+    for dense, what in ((64, "mixed"), (0, "EA sparsity only"), (B, "all half on")):
+        ss, rs = (t.to(device) for t in suffstat_states(B, S, H, gen, dense=dense))
+        errs = check_suffstat_case(what, ss, rs)
+        pk = pack_bits_lane(ss)
+        ms, dev_ms = cuda_ms(lambda: bsc_suffstat(ss, rs)), graph_ms(lambda: bsc_suffstat(ss, rs))
+        ms_pk = cuda_ms(lambda: bsc_suffstat(pk, rs, H=H))
+        dev_pk = graph_ms(lambda: bsc_suffstat(pk, rs, H=H))
+        bnd, by = suffstat_bound(ss)
+        bnd_pk, by_pk = suffstat_bound(ss, packed=True)
+        say(f"bsc_suffstat {what} H={H} S={S}: max_abs_err {max(errs):.3g}; int8 {ms:.4f} ms "
+            f"(device {dev_ms:.4f} ms, bound {bnd:.4f} ms, {by}); packed {ms_pk:.4f} ms "
+            f"(device {dev_pk:.4f} ms, bound {bnd_pk:.4f} ms, {by_pk})")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    w = (rs[..., None] * ss).reshape(-1, H)
+    sf = ss.float().reshape(-1, H)
+    say(f"yardstick, Wq's dense product in cuBLAS (torch.mm(w.T, sf), f32 [{B * S}, {H}], "
+        f"TF32 off): {cuda_ms(lambda: torch.mm(w.T, sf)):.4f} ms")
 
 
 def check_lpj_case(label, args):
@@ -1263,6 +1356,7 @@ def main():
         rows.update(check_masked_kernels(DEVICE, torch.Generator().manual_seed(2)))
         rows.update(check_packed_kernels(DEVICE, torch.Generator().manual_seed(3)))
         check_lpj_densities(DEVICE, torch.Generator().manual_seed(4))
+        check_suffstat_densities(DEVICE, torch.Generator().manual_seed(5))
     with Phase("exact"):
         exact_epoch(launches)
     with Phase("main"):

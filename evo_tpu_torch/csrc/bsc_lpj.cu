@@ -69,6 +69,8 @@
 
 #include <atomic>
 
+#include "state_mask.cuh"
+
 namespace {
 
 constexpr int MAX_H = 1024;  // ops/bsc_lpj.py:MAX_H
@@ -101,56 +103,10 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// bit k of the result <=> byte k of w is nonzero (k < 4)
-__device__ __forceinline__ uint32_t nonzero_bytes(uint32_t w) {
-  return ((__vcmpne4(w, 0u) & 0x01010101u) * 0x01020408u) >> 24;
-}
-
-// the 16 bytes at p, or the `avail` of them that exist and zeros after
-__device__ __forceinline__ uint4 load16(const uint8_t* p, int avail, bool aligned) {
-  if (aligned && avail >= 16) return __ldg(reinterpret_cast<const uint4*>(p));
-  uint32_t w[4] = {0u, 0u, 0u, 0u};
-  for (int k = 0; k < 16 && k < avail; ++k) w[k >> 2] |= uint32_t(__ldg(p + k)) << (8 * (k & 3));
-  return make_uint4(w[0], w[1], w[2], w[3]);
-}
-
 // the n-th set bit of m (n < popc(m))
 __device__ __forceinline__ int nth_bit(uint32_t m, int n) {
   for (; n > 0; --n) m &= m - 1u;
   return __ffs(m) - 1;
-}
-
-// OR the latents of the 16 state bytes v, at byte p0 of consecutive rows
-// of H int8 bytes or W8 packed bytes, into the rows' masks (MS words apart)
-template <bool PACKED>
-__device__ __forceinline__ void or_chunk(uint32_t* mask, int MS, uint4 v, int p0, int H, int W8) {
-  const uint32_t w4[4] = {v.x, v.y, v.z, v.w};
-  if (!PACKED) {
-    uint32_t m = nonzero_bytes(w4[0]) | nonzero_bytes(w4[1]) << 4 | nonzero_bytes(w4[2]) << 8 |
-                 nonzero_bytes(w4[3]) << 12;
-    if (m == 0u) return;
-    if (H % 16 == 0) {  // the chunk is one aligned halfword of one row
-      const int r = p0 / H, h = p0 - r * H;
-      atomicOr(&mask[r * MS + (h >> 5)], m << (h & 16));
-    } else {
-      for (; m != 0u; m &= m - 1u) {
-        const int p = p0 + __ffs(m) - 1, r = p / H, h = p - r * H;
-        atomicOr(&mask[r * MS + (h >> 5)], 1u << (h & 31));
-      }
-    }
-  } else {
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      for (uint32_t nz = nonzero_bytes(w4[q]); nz != 0u; nz &= nz - 1u) {
-        const int k = __ffs(nz) - 1;
-        const int p = p0 + 4 * q + k, r = p / W8, j = p - r * W8;
-        for (uint32_t byte = (w4[q] >> (8 * k)) & 0xffu; byte != 0u; byte &= byte - 1u) {
-          const int h = (__ffs(byte) - 1) * W8 + j;
-          if (h < H) atomicOr(&mask[r * MS + (h >> 5)], 1u << (h & 31));
-        }
-      }
-    }
-  }
 }
 
 template <bool KEYS, bool PACKED>

@@ -10,20 +10,24 @@ ceil(H/8)] with H given, see ops.bitpack) with responsibilities rs [B, S]:
 
 ``bsc_suffstat`` runs the kernel on a CUDA tensor and the plain version
 ``bsc_suffstat_plain`` on a CPU tensor; nothing falls back from one to the
-other.  The kernel sums Wq in a fixed order, so it is the same from run to
-run.  The mode follows the states' dtype (uint8: packed), and each mode
-counts its own launches: ``bsc_suffstat.launches`` (int8),
+other.  The kernel sums only each state's active bits, in an order fixed
+by the data (no float atomics), so Wq is the same from run to run and the
+int8 and packed modes give bit-identical results; it takes H up to MAX_H.
+The mode follows the states' dtype (uint8: packed), and each mode counts
+its own launches: ``bsc_suffstat.launches`` (int8),
 ``bsc_suffstat.packed_launches``.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
 from evo_tpu_torch.ops import _build
 from evo_tpu_torch.ops.bitpack import n_bytes_lane, unpack_bits_lane
 
-ROWS_PER_CHUNK = 1024  # state rows per pass-1 chunk (whole datapoints)
+MAX_H = 65535  # the kernel lists a row's latents as uint16
 
 
 def _width(ss, H):
@@ -44,6 +48,17 @@ def bsc_suffstat_plain(ss, rs, H: int = None):
     sf = ss.to(rs.dtype)
     w = rs[..., None] * sf
     return w.sum(dim=1), sf.sum(dim=-1), w.reshape(-1, H).T @ sf.reshape(-1, H)
+
+
+@functools.cache
+def _n_chunks(device_index, B, S, H):
+    """The kernel's number of chunks G for this shape on this card (the
+    same for both modes); kept, so that a call made while a CUDA graph is
+    captured asks the card nothing."""
+    with torch.cuda.device(device_index):
+        n = _build.entry("evo_bsc_suffstat_chunks")(B, S, H)
+    _build.check(-min(n, 0), "bsc_suffstat")
+    return n
 
 
 def bsc_suffstat(ss, rs, H: int = None):
@@ -67,15 +82,17 @@ def bsc_suffstat(ss, rs, H: int = None):
         raise ValueError("bsc_suffstat: inputs must be contiguous")
     if B * S * H == 0:
         raise ValueError(f"bsc_suffstat: empty shape {tuple(ss.shape)}")
-    chunk = max(1, ROWS_PER_CHUNK // S)
-    n_chunks = -(-B // chunk)
+    if H > MAX_H:
+        raise ValueError(f"bsc_suffstat: H={H} above the kernel's {MAX_H}")
+    n_chunks = _n_chunks(dev.index, B, S, H)
     rho = torch.empty((B, H), dtype=torch.float32, device=dev)
     sabs = torch.empty((B, S), dtype=torch.float32, device=dev)
     wq = torch.empty((H, H), dtype=torch.float32, device=dev)
-    partial = torch.empty((n_chunks, H, H), dtype=torch.float32, device=dev)
+    # each chunk's part of Wq's packed upper triangle
+    partial = torch.empty((n_chunks, H * (H + 1) // 2), dtype=torch.float32, device=dev)
     fn = _build.entry("evo_bsc_suffstat_packed" if packed else "evo_bsc_suffstat")
     err = fn(ss.data_ptr(), rs.data_ptr(), rho.data_ptr(), sabs.data_ptr(),
-             wq.data_ptr(), partial.data_ptr(), B, S, H, chunk,
+             wq.data_ptr(), partial.data_ptr(), B, S, H, n_chunks,
              torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "bsc_suffstat")
     if packed:
