@@ -54,11 +54,19 @@ dense row among sparse ones, a ragged H = 100, H = 1024; the suffstat also
 H = 10 with S = 1024, H = 32 and 40, a B that fills no whole unit, rows
 with rs exactly 0, the bsc_inpaint block, and two launches bit for bit
 alike) with their times on states at the EA's sparsity only and on states
-all half on, the suffstat's beside Wq's dense product in cuBLAS.  Every
-kernel's time (`ms`) is that of a call, by CUDA events around calls; the
-EBSC kernels' also have their device time (`device_ms`, calls replayed
-from a CUDA graph, so the host's launch cost is left out).  Then a JSON
-line with the kernels' numbers and, last, the result line.
+all half on, the suffstat's beside Wq's dense product in cuBLAS.  Both
+ES3C suffstat kernels are also held to their plain versions where their
+paths meet (states at the sparse path's threshold and one past it, |s| =
+H - 1 and H, rows with no bit on or r exactly 0, equal states, a B that
+fills no whole unit, a masked datapoint whose states are all dense at
+H = 64, the overflow cap at H = 100 and 128, S = 600, S = 1 and H = 13),
+and every ES3C suffstat check relaunches the kernel and wants the outputs
+bit for bit.
+Every kernel's time (`ms`) is that of a call, by CUDA events around calls;
+the suffstat kernels and the EBSC lpj also have their device time
+(`device_ms`, calls replayed from a CUDA graph, so the host's launch cost is
+left out).  Then a JSON line with the kernels' numbers and, last, the result
+line.
 
 Any failed check raises and the script exits non-zero; it also exits
 non-zero without a result when no CUDA card is present.  The whole run is
@@ -92,6 +100,7 @@ from evo_tpu_torch.ops.sssc_lpj import (
     sssc_lpj_plain,
 )
 from evo_tpu_torch.ops.sssc_suffstat import (
+    SPARSE_N,
     sssc_suffstat,
     sssc_suffstat_masked,
     sssc_suffstat_plain,
@@ -116,7 +125,7 @@ WARM_EPOCHS, TIMED_EPOCHS = 1, 3
 # the kernels of evo_tpu_torch/csrc, as the profiler names them
 PORT_KERNELS = ("bsc_lpj_kernel", "bsc_lpj_dense", "bsc_suffstat_partial", "bsc_suffstat_reduce",
                 "sssc_lpj_kernel", "sssc_lpj_masked_kernel", "sssc_suffstat_partial",
-                "suffstat_reduce")
+                "sssc_suffstat_reduce")
 # bench.py's two ES3C configurations: its N = 65,536 benchmark
 # (bench.py:181-191) and the reference's feature-learning default
 # (bench.py:233-243, with slab noise in its data); each (n_blocks, B, D, H,
@@ -655,12 +664,16 @@ def sssc_suffstat_bound(ss):
 def suffstat_errors(ss_args, label):
     """sssc_suffstat (the masked kernel for a per-datapoint G) against its
     plain version: each output's largest error over its largest magnitude,
-    which must be within 4e-5, and the largest absolute error."""
-    got, want = sssc_suffstat(**ss_args), sssc_suffstat_plain(**ss_args)
+    which must be within 4e-5, and the largest absolute error; a second
+    launch must give every output bit for bit."""
+    got, again = sssc_suffstat(**ss_args), sssc_suffstat(**ss_args)
+    want = sssc_suffstat_plain(**ss_args)
     torch.cuda.synchronize()
     errs = []
-    for name, g, w in zip(("xpt_sz", "xpt_s", "xpt_ss", "xpt_szsz", "s_sz", "sz_sz"),
-                          got, want):
+    for name, g, a, w in zip(("xpt_sz", "xpt_s", "xpt_ss", "xpt_szsz", "s_sz", "sz_sz"),
+                             got, again, want):
+        if not torch.equal(g, a):
+            raise AssertionError(f"sssc_suffstat {label} {name}: two launches differ")
         e = ((g - w).abs().max() / w.abs().max().clamp(min=1e-30)).item()
         if not e <= 4e-5:
             raise AssertionError(f"sssc_suffstat {label} {name}: relative err {e:.3g}")
@@ -725,14 +738,15 @@ def check_sssc_kernels(device, gen):
         if Hk == 32:
             zero_pivot_suffstat(ss_args)
         ms = cuda_ms(lambda: sssc_suffstat(**ss_args))
+        dev_ms = graph_ms(lambda: sssc_suffstat(**ss_args))
         plain = cuda_ms(lambda: sssc_suffstat_plain(**ss_args))
         bnd, by = sssc_suffstat_bound(args["ss"])
         say(f"sssc_suffstat B={Bk} S={K} H={Hk}: max err / max value {max(errs):.3g} "
-            f"(max_abs_err {abs_err:.3g}), {int(flagged.sum())} flagged; {ms:.4f} ms, "
-            f"plain {plain:.4f} ms, bound {bnd:.4f} ms ({by})")
+            f"(max_abs_err {abs_err:.3g}), {int(flagged.sum())} flagged; {ms:.4f} ms "
+            f"(device {dev_ms:.4f} ms), plain {plain:.4f} ms, bound {bnd:.4f} ms ({by})")
         if Hk == 32:
-            rows["sssc_suffstat"] = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain,
-                                         bound_ms=bnd, bound_by=by)
+            rows["sssc_suffstat"] = dict(max_abs_err=abs_err, ms=ms, device_ms=dev_ms,
+                                         plain_ms=plain, bound_ms=bnd, bound_by=by)
     return rows
 
 
@@ -867,15 +881,94 @@ def check_masked_kernels(device, gen):
         rel, abs_err = suffstat_errors(ss_args, label)
         prel, pabs = suffstat_errors(dict(ss_args, Psi=poisoned), label + " poisoned")
         ms = cuda_ms(lambda: sssc_suffstat_masked(**ss_args))
+        dev_ms = graph_ms(lambda: sssc_suffstat_masked(**ss_args))
         plain = cuda_ms(lambda: sssc_suffstat_plain(**ss_args), reps=3, warm=1)
         bnd, by, gbytes = masked_suffstat_bound(args["ss"])
         say(f"sssc_suffstat_masked {label}: max err / max value {max(rel + prel):.3g} "
-            f"(max_abs_err {max(abs_err, pabs):.3g}); {ms:.4f} ms, plain {plain:.4f} ms, "
-            f"bound {bnd:.4f} ms ({by}; G_n read {gbytes / 1e6:.3f} MB)")
+            f"(max_abs_err {max(abs_err, pabs):.3g}); {ms:.4f} ms (device {dev_ms:.4f} ms), "
+            f"plain {plain:.4f} ms, bound {bnd:.4f} ms ({by}; G_n read {gbytes / 1e6:.3f} MB)")
         if Bk == INPAINT_N:
             rows["sssc_suffstat_masked"] = dict(max_abs_err=max(abs_err, pabs), ms=ms,
-                                                plain_ms=plain, bound_ms=bnd, bound_by=by)
+                                                device_ms=dev_ms, plain_ms=plain, bound_ms=bnd,
+                                                bound_by=by)
     return rows
+
+
+def suffstat_edge_inputs(Bk, S_, Hk, gen, device, masked=False, sizes=()):
+    """Inputs of the ES3C suffstat kernels: states at the EA's sparsity
+    (2/H bits on), then the states (datapoint, slot, |s|) of ``sizes`` drawn
+    with that many units; data of width D = 25 (H <= 64) or 64 under a
+    random W, with 10% of the entries missing and G_n from block_gram on
+    the card when ``masked``; a well-conditioned Psi; softmax
+    responsibilities."""
+    Dk = 25 if Hk <= 64 else 64
+    ss = (torch.rand(Bk, S_, Hk, generator=gen) < 2.0 / Hk).to(torch.int8)
+    for b, k, n in sizes:
+        ss[b, k] = 0
+        ss[b, k, torch.randperm(Hk, generator=gen)[:n]] = 1
+    W = torch.randn(Dk, Hk, generator=gen)
+    y = torch.randn(Bk, Dk, generator=gen) * 2
+    A = torch.randn(Hk, Hk, generator=gen)
+    args = dict(ss=ss.to(device), Psi=(A @ A.T / Hk + torch.eye(Hk)).to(device),
+                mus=torch.randn(Hk, generator=gen).to(device),
+                rs=torch.softmax(torch.randn(Bk, S_, generator=gen) * 3, -1).to(device),
+                s2inv=torch.tensor(1.25, device=device))
+    if masked:
+        m = torch.rand(Bk, Dk, generator=gen) >= INPAINT_MISSING
+        args["G"], args["Wty"], _ = block_gram(W.to(device), (y * m).to(device), m.to(device),
+                                               True)
+    else:
+        args["G"], args["Wty"] = (W.T @ W).to(device), (y @ W).to(device)
+    return args
+
+
+def check_sssc_suffstat_edges(device, gen):
+    """Both ES3C suffstat kernels where their paths meet, each against its
+    plain version within suffstat_errors (4e-5 of each output's largest
+    magnitude, a relaunch bit for bit): states at the sparse path's
+    threshold (SPARSE_N units, a thread each) and one past it (a warp each),
+    |s| = H - 1 and H, datapoints with no bit on, rows with r exactly 0
+    (dense ones too), every state of a datapoint the same (sparse, and
+    dense), a B that fills no whole unit of datapoints; masked, a datapoint
+    whose S states are all dense at H = 64; H = 100 and 128 with |s| = 16
+    and 17 (the overflow cap); S = 600 (a datapoint's rows in pieces),
+    S = 1, and H = 13 (rows that start off 16-byte boundaries, and G_n
+    copied a float at a time)."""
+    thr = [(3 + 5 * i, i % 20, SPARSE_N + i % 2) for i in range(40)]
+    wide = [(300, 0, 31), (301, 5, 32), (302, 19, 31)]
+    for masked in (False, True):
+        fn = "sssc_suffstat_masked" if masked else "sssc_suffstat"
+        args = suffstat_edge_inputs(4099, 20, 32, gen, device, masked, thr + wide)
+        args["ss"][400:403] = 0  # no bit on
+        args["ss"][410] = args["ss"][410, 0]  # every state the same (sparse)
+        args["ss"][411] = args["ss"][301, 5]  # every state the same, all units on
+        zero = torch.zeros(4099, 20, dtype=torch.bool, device=device)
+        zero[3, 0] = zero[8, 1] = zero[301, 5] = True  # r exactly 0, dense rows too
+        zero[500] = zero[1000:3000:7, 4] = True
+        args["rs"] = torch.where(zero, 0.0, args["rs"]).contiguous()
+        n = args["ss"].sum(-1)
+        assert bool((n == SPARSE_N).any() and (n == SPARSE_N + 1).any() and (n == 32).any())
+        errs, abs_err = suffstat_errors(args, f"edges H=32 masked={masked}")
+        say(f"{fn} edges (B=4099 S=20 H=32: |s| = {SPARSE_N}, {SPARSE_N + 1}, 31, 32, rows "
+            f"with no bit or r = 0, equal states): max err / max value {max(errs):.3g}")
+    dense = [(6, k, 40 + 3 * k) for k in range(7)] + [(6, 7, 64), (9, 2, SPARSE_N + 1)]
+    args = suffstat_edge_inputs(1001, 8, 64, gen, device, True, dense)
+    errs, _ = suffstat_errors(args, "masked H=64 dense datapoint")
+    say(f"sssc_suffstat_masked B=1001 S=8 H=64, a datapoint's 8 states |s| 40-64: "
+        f"max err / max value {max(errs):.3g}")
+    caps = [(3 * i + 1, i % 15, n) for i, n in
+            enumerate((16, 17, 16, 17, SPARSE_N, SPARSE_N + 1, 12, 40))]
+    for Bk, Hk in ((2051, 100), (1000, 128)):
+        args = suffstat_edge_inputs(Bk, 15, Hk, gen, device, False, caps)
+        errs, _ = suffstat_errors(args, f"H={Hk} cap")
+        say(f"sssc_suffstat B={Bk} S=15 H={Hk}, |s| = 16, 17, {SPARSE_N}, {SPARSE_N + 1}: "
+            f"max err / max value {max(errs):.3g}")
+    for Bk, S_, Hk in ((40, 600, 12), (5000, 1, 32), (500, 7, 13)):
+        for masked in (False, True):
+            args = suffstat_edge_inputs(Bk, S_, Hk, gen, device, masked)
+            errs, _ = suffstat_errors(args, f"B={Bk} S={S_} H={Hk} masked={masked}")
+            say(f"{'sssc_suffstat_masked' if masked else 'sssc_suffstat'} B={Bk} S={S_} "
+                f"H={Hk}: max err / max value {max(errs):.3g}")
 
 
 def bars_data(Hx, N, seed):
@@ -1357,6 +1450,7 @@ def main():
         rows.update(check_packed_kernels(DEVICE, torch.Generator().manual_seed(3)))
         check_lpj_densities(DEVICE, torch.Generator().manual_seed(4))
         check_suffstat_densities(DEVICE, torch.Generator().manual_seed(5))
+        check_sssc_suffstat_edges(DEVICE, torch.Generator().manual_seed(6))
     with Phase("exact"):
         exact_epoch(launches)
     with Phase("main"):

@@ -4,18 +4,26 @@
 // Replaces: evo_tpu/ops/pallas_sssc.py:_suffstat_pallas_masked (body
 // _make_suffstat_kernel with masked=True).  The TPU kernel streams G_b as a
 // lane-major block beside a Ga = G_b (s * mus) computed outside the kernel
-// (Mosaic could not build it); here each warp reads the G_b entries of its
-// state's active units through L1 and forms G_AA mus_A itself.  The kernel,
-// its bound and its design are in sssc_suffstat.cuh (MASKED = true, no
-// overflow cap: every state is solved exactly).
+// (Mosaic could not build it); here a block stages the G_b rows of the
+// union of each datapoint's active units in shared memory once, for all its
+// states, and each solve forms G_AA mus_A itself.  The kernel, its bound and
+// its design are in sssc_suffstat.cuh (MASKED = true, no overflow cap:
+// every state is solved exactly).
 
 #include "sssc_suffstat.cuh"
 
+// The number of blocks G for (B, S, H) on the current device; negative on
+// a CUDA error.
+extern "C" int evo_sssc_suffstat_masked_blocks(int B, int S, int H) {
+  return sssc_suffstat_blocks<true>(B, S, H, 0);
+}
+
+// partial: [G, 3 H(H+1)/2 + H^2] f32, G from evo_sssc_suffstat_masked_blocks
 extern "C" int evo_sssc_suffstat_masked(const void* ss, const void* rs, const void* wty,
                                         const void* G, const void* Psi, const void* mus,
                                         const void* s2inv, void* xpt_sz, void* xpt_s,
                                         void* out, void* partial, int B, int S, int H,
-                                        int chunk, void* stream) {
+                                        int n_blocks, void* stream) {
   return launch_sssc_suffstat<true>(ss, rs, wty, G, Psi, mus, s2inv, xpt_sz, xpt_s, out,
-                                    partial, B, S, H, 0, chunk, stream);
+                                    partial, B, S, H, 0, n_blocks, stream);
 }

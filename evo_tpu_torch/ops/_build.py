@@ -41,14 +41,18 @@ SIGNATURES = {
     "evo_bsc_suffstat_packed": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # ss, wty, y2, G, Psi, mus, pil_bar, s2inv, lpj, bad, B, K, H, cap, stream
     "evo_sssc_lpj": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    # ss, rs, wty, G, Psi, mus, s2inv, xpt_sz, xpt_s, out, partial, B, S, H, cap,
-    # chunk, stream
+    # B, S, H, cap -> the number of blocks G of the call below
+    "evo_sssc_suffstat_blocks": [_I, _I, _I, _I],
+    # ss, rs, wty, G, Psi, mus, s2inv, xpt_sz, xpt_s, out, partial [G, 3 H(H+1)/2 + H^2],
+    # B, S, H, cap, G, stream
     "evo_sssc_suffstat": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                           _P],
     # ss, wty, y2, G [B, H, H], Psi, mus, pil_bar, s2inv, lpj, bad, B, K, H, stream
     "evo_sssc_lpj_masked": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # B, S, H -> the number of blocks G of the call below
+    "evo_sssc_suffstat_masked_blocks": [_I, _I, _I],
     # ss, rs, wty, G [B, H, H], Psi, mus, s2inv, xpt_sz, xpt_s, out, partial, B, S,
-    # H, chunk, stream
+    # H, G, stream
     "evo_sssc_suffstat_masked": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                  _P],
 }

@@ -28,11 +28,14 @@ G_n, for H <= 64 (``MASKED_MAX_H``), where every state is exact.
 ``sssc_suffstat`` and ``sssc_suffstat_masked`` run the kernel on a CUDA
 tensor and the plain version ``sssc_suffstat_plain`` (which takes either
 Gram) on a CPU tensor; nothing falls back from one to the other.  The
-kernels sum the [H, H] outputs in a fixed order, so they are the same from
-run to run.
+kernels solve a state with up to ``SPARSE_N`` active units in one thread's
+registers and a denser one in a warp, and sum every output in an order
+fixed by the data (no float atomics), so they are the same from run to run.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -49,7 +52,7 @@ from evo_tpu_torch.ops.sssc_lpj import (
     overflow_cap,
 )
 
-CHUNK = 16  # datapoints per block of the kernel's first pass
+SPARSE_N = 8  # the kernels' sparse path: states with up to 8 units, a thread each
 
 
 def _finite(x: torch.Tensor) -> torch.Tensor:
@@ -127,6 +130,17 @@ def sssc_suffstat_masked(ss, rs, Wty, G, Psi, mus, s2inv):
 sssc_suffstat_masked.launches = 0
 
 
+@functools.cache
+def _n_blocks(entry, device_index, shape):
+    """The kernel's number of blocks G for this shape (B, S, H and, without
+    a mask, the cap) on this card; kept, so that a call made while a CUDA
+    graph is captured asks the card nothing."""
+    with torch.cuda.device(device_index):
+        n = _build.entry(entry + "_blocks")(*shape)
+    _build.check(-min(n, 0), entry)
+    return n
+
+
 def _launch(entry, masked, ss, rs, Wty, G, Psi, mus, s2inv):
     """Check the inputs and launch one of the two kernels; the shared-Gram
     one also takes the overflow cap."""
@@ -136,17 +150,19 @@ def _launch(entry, masked, ss, rs, Wty, G, Psi, mus, s2inv):
     g_shape = (B, H, H) if masked else (H, H)
     check_f32(entry, dev, ("rs", rs, (B, S)), ("Wty", Wty, (B, H)), ("G", G, g_shape),
               ("Psi", Psi, (H, H)), ("mus", mus, (H,)))
-    n_chunks = -(-B // CHUNK)
+    shape = (B, S, H) if masked else (B, S, H, overflow_cap(H))
+    n_blocks = _n_blocks(entry, dev.index, shape)
     scal = device_scalar(s2inv, dev)
     xpt_sz = torch.empty((B, H), dtype=torch.float32, device=dev)
     xpt_s = torch.empty((B, H), dtype=torch.float32, device=dev)
     out = torch.empty((4, H, H), dtype=torch.float32, device=dev)
-    partial = torch.empty((n_chunks, 4, H, H), dtype=torch.float32, device=dev)
-    args = [ss.data_ptr(), rs.data_ptr(), Wty.data_ptr(), G.data_ptr(), Psi.data_ptr(),
-            mus.data_ptr(), scal.data_ptr(), xpt_sz.data_ptr(), xpt_s.data_ptr(),
-            out.data_ptr(), partial.data_ptr(), B, S, H]
-    if not masked:
-        args.append(overflow_cap(H))
-    err = _build.entry(entry)(*args, CHUNK, torch.cuda.current_stream(dev).cuda_stream)
+    # each block's xpt_ss, xpt_szsz and sz_sz_outer triangles and s_sz_outer
+    partial = torch.empty((n_blocks, 3 * (H * (H + 1) // 2) + H * H), dtype=torch.float32,
+                          device=dev)
+    err = _build.entry(entry)(ss.data_ptr(), rs.data_ptr(), Wty.data_ptr(), G.data_ptr(),
+                              Psi.data_ptr(), mus.data_ptr(), scal.data_ptr(),
+                              xpt_sz.data_ptr(), xpt_s.data_ptr(), out.data_ptr(),
+                              partial.data_ptr(), *shape, n_blocks,
+                              torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, entry)
     return xpt_sz, xpt_s, out[0], out[1], out[2], out[3]
