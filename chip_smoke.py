@@ -61,12 +61,15 @@ H - 1 and H, rows with no bit on or r exactly 0, equal states, a B that
 fills no whole unit, a masked datapoint whose states are all dense at
 H = 64, the overflow cap at H = 100 and 128, S = 600, S = 1 and H = 13),
 and every ES3C suffstat check relaunches the kernel and wants the outputs
-bit for bit.
+bit for bit.  Both ES3C lpj kernels are held to their plain versions at the
+same kind of edges (|s| = 8, 9, H - 1 and H, rows with no bit on, equal
+states, K = 1 and 300, H = 13, the cap at H = 100 and 128, the poisoned
+Psi, a dense masked datapoint at H = 64, pivots of M' at 1.5e-6 and 0.5e-6
+and a masked Psi_AA pivot of 1e-8), each relaunched bit for bit.
 Every kernel's time (`ms`) is that of a call, by CUDA events around calls;
-the suffstat kernels and the EBSC lpj also have their device time
-(`device_ms`, calls replayed from a CUDA graph, so the host's launch cost is
-left out).  Then a JSON line with the kernels' numbers and, last, the result
-line.
+every kernel also has its device time (`device_ms`, calls replayed from a
+CUDA graph, so the host's launch cost is left out).  Then a JSON line with
+the kernels' numbers and, last, the result line.
 
 Any failed check raises and the script exits non-zero; it also exits
 non-zero without a result when no CUDA card is present.  The whole run is
@@ -124,8 +127,7 @@ N_PARENTS, N_CHILDREN, N_GENERATIONS = 10, 1, 1
 WARM_EPOCHS, TIMED_EPOCHS = 1, 3
 # the kernels of evo_tpu_torch/csrc, as the profiler names them
 PORT_KERNELS = ("bsc_lpj_kernel", "bsc_lpj_dense", "bsc_suffstat_partial", "bsc_suffstat_reduce",
-                "sssc_lpj_kernel", "sssc_lpj_masked_kernel", "sssc_suffstat_partial",
-                "sssc_suffstat_reduce")
+                "sssc_lpj_kernel", "sssc_suffstat_partial", "sssc_suffstat_reduce")
 # bench.py's two ES3C configurations: its N = 65,536 benchmark
 # (bench.py:181-191) and the reference's feature-learning default
 # (bench.py:233-243, with slab noise in its data); each (n_blocks, B, D, H,
@@ -720,14 +722,16 @@ def check_sssc_kernels(device, gen):
             raise AssertionError(f"sssc_lpj H={Hk} K={K}: max err {err.max().item():.3g} "
                                  "over tolerance")
         ms = cuda_ms(lambda: sssc_lpj(**args))
+        dev_ms = graph_ms(lambda: sssc_lpj(**args))
         plain = cuda_ms(lambda: sssc_lpj_plain(**args))
         bnd, by = sssc_lpj_bound(args["ss"])
         say(f"sssc_lpj B={Bk} K={K} H={Hk}: max_abs_err {err.max().item():.3g}, "
             f"{int(flagged.sum())} flagged, max |s| {int(args['ss'].sum(-1).max())}; "
-            f"{ms:.4f} ms, plain {plain:.4f} ms, bound {bnd:.4f} ms ({by})")
+            f"{ms:.4f} ms (device {dev_ms:.4f} ms), plain {plain:.4f} ms, bound {bnd:.4f} ms "
+            f"({by})")
         if (Bk, K, Hk) == (4096, 20, 32):  # the K^(n) launch of sssc_primary
-            rows["sssc_lpj"] = dict(max_abs_err=err.max().item(), ms=ms, plain_ms=plain,
-                                    bound_ms=bnd, bound_by=by)
+            rows["sssc_lpj"] = dict(max_abs_err=err.max().item(), ms=ms, device_ms=dev_ms,
+                                    plain_ms=plain, bound_ms=bnd, bound_by=by)
         if K == 10:
             continue
         ss_args = dict(ss=args["ss"], Wty=args["Wty"], G=args["G"], Psi=clean_psi,
@@ -865,14 +869,16 @@ def check_masked_kernels(device, gen):
             raise AssertionError(f"sssc_lpj_masked {label}: {pflag} flagged under the poisoned "
                                  f"Psi, expected {want_flag}")
         ms = cuda_ms(lambda: sssc_lpj_masked(**args))
+        dev_ms = graph_ms(lambda: sssc_lpj_masked(**args))
         plain = cuda_ms(lambda: sssc_lpj_masked_plain(**args), reps=3, warm=1)
         bnd, by, gbytes = masked_lpj_bound(args["ss"])
         say(f"sssc_lpj_masked {label}: max_abs_err {max(err, perr):.3g}, {pflag} flagged under "
-            f"the poisoned Psi, max |s| {int(args['ss'].sum(-1).max())}; {ms:.4f} ms, plain "
-            f"{plain:.4f} ms, bound {bnd:.4f} ms ({by}; G_n read {gbytes / 1e6:.3f} MB)")
+            f"the poisoned Psi, max |s| {int(args['ss'].sum(-1).max())}; {ms:.4f} ms (device "
+            f"{dev_ms:.4f} ms), plain {plain:.4f} ms, bound {bnd:.4f} ms ({by}; G_n read "
+            f"{gbytes / 1e6:.3f} MB)")
         if (Bk, K) == (INPAINT_N, INPAINT_S):  # the K^(n) launch of sssc_inpaint
-            rows["sssc_lpj_masked"] = dict(max_abs_err=max(err, perr), ms=ms, plain_ms=plain,
-                                           bound_ms=bnd, bound_by=by)
+            rows["sssc_lpj_masked"] = dict(max_abs_err=max(err, perr), ms=ms, device_ms=dev_ms,
+                                           plain_ms=plain, bound_ms=bnd, bound_by=by)
         if K == 10:
             continue
         rs = torch.softmax(torch.randn(Bk, K, generator=gen) * 3, -1).to(device)
@@ -894,13 +900,14 @@ def check_masked_kernels(device, gen):
     return rows
 
 
-def suffstat_edge_inputs(Bk, S_, Hk, gen, device, masked=False, sizes=()):
+def suffstat_edge_inputs(Bk, S_, Hk, gen, device, masked=False, sizes=(), lpj=False):
     """Inputs of the ES3C suffstat kernels: states at the EA's sparsity
     (2/H bits on), then the states (datapoint, slot, |s|) of ``sizes`` drawn
     with that many units; data of width D = 25 (H <= 64) or 64 under a
     random W, with 10% of the entries missing and G_n from block_gram on
     the card when ``masked``; a well-conditioned Psi; softmax
-    responsibilities."""
+    responsibilities.  With ``lpj`` the lpj kernels' arguments instead (y2,
+    and pil_bar from pies drawn in (1/H, 3/H), in place of rs)."""
     Dk = 25 if Hk <= 64 else 64
     ss = (torch.rand(Bk, S_, Hk, generator=gen) < 2.0 / Hk).to(torch.int8)
     for b, k, n in sizes:
@@ -915,10 +922,15 @@ def suffstat_edge_inputs(Bk, S_, Hk, gen, device, masked=False, sizes=()):
                 s2inv=torch.tensor(1.25, device=device))
     if masked:
         m = torch.rand(Bk, Dk, generator=gen) >= INPAINT_MISSING
-        args["G"], args["Wty"], _ = block_gram(W.to(device), (y * m).to(device), m.to(device),
-                                               True)
+        args["G"], args["Wty"], y2 = block_gram(W.to(device), (y * m).to(device), m.to(device),
+                                                True)
     else:
         args["G"], args["Wty"] = (W.T @ W).to(device), (y @ W).to(device)
+        y2 = (y * y).sum(-1).to(device)
+    if lpj:
+        pies = (1.0 + 2.0 * torch.rand(Hk, generator=gen)) / Hk
+        del args["rs"]
+        args.update(y2=y2, pil_bar=torch.log(pies / (1 - pies)).to(device))
     return args
 
 
@@ -969,6 +981,119 @@ def check_sssc_suffstat_edges(device, gen):
             errs, _ = suffstat_errors(args, f"B={Bk} S={S_} H={Hk} masked={masked}")
             say(f"{'sssc_suffstat_masked' if masked else 'sssc_suffstat'} B={Bk} S={S_} "
                 f"H={Hk}: max err / max value {max(errs):.3g}")
+
+
+def check_lpj_edge(args, label):
+    """An ES3C lpj kernel (the masked one for a per-datapoint G) against its
+    plain version: identical bad flags, NaN exactly on them, the rest within
+    2e-3 + 2e-4 |lpj|; a second launch must give lpj and bad bit for bit.
+    Returns the largest absolute error and the flags [B, K]."""
+    masked = args["G"].dim() == 3
+    fn, plain = (sssc_lpj_masked, sssc_lpj_masked_plain) if masked else (sssc_lpj, sssc_lpj_plain)
+    (lpj, bad), (again, bad_again) = fn(**args), fn(**args)
+    lpj_p, bad_p = plain(**args)
+    torch.cuda.synchronize()
+    name = f"{fn.__name__} {label}"
+    if not (torch.equal(lpj.view(torch.int32), again.view(torch.int32))
+            and torch.equal(bad, bad_again)):
+        raise AssertionError(f"{name}: two launches differ")
+    flagged = bad > 0
+    if not (torch.equal(bad, bad_p) and torch.equal(torch.isnan(lpj), flagged)
+            and torch.equal(torch.isnan(lpj_p), flagged)):
+        raise AssertionError(f"{name}: bad flags or NaNs differ")
+    err = (lpj - lpj_p).abs()[~flagged]
+    if not bool((err <= 2e-3 + 2e-4 * lpj_p.abs()[~flagged]).all()):
+        raise AssertionError(f"{name}: max err {err.max().item():.3g} over tolerance")
+    return (err.max().item() if err.numel() else 0.0), flagged
+
+
+def check_sssc_lpj_edges(device, gen):
+    """Both ES3C lpj kernels where their paths meet, each against its plain
+    version within check_lpj_edge (flags identical, NaN exactly on them,
+    2e-3 + 2e-4 |lpj|, a relaunch bit for bit): states at the sparse path's
+    threshold (SPARSE_N units, a thread each) and one past it (a warp each),
+    |s| = H - 1 and H, datapoints with no bit on, every state of a datapoint
+    the same (sparse, and dense), a B that fills no whole block of
+    datapoints; K = 1 and K = 300 (a datapoint's rows in pieces), H = 13
+    (rows off 16-byte boundaries, G_n copied a float at a time); masked, a
+    datapoint whose 8 states are all dense at H = 64; H = 100 and 128 with
+    |s| = 16 and 17 (flagged exactly past the overflow cap); the poisoned
+    Psi of sssc_inputs and masked_inputs (the masked one also in a dense
+    state); on complete data single-unit states whose pivot of M' is
+    1.5e-6 (kept) and 0.5e-6 (flagged), and, masked, states with a pivot
+    of Psi_AA of 1e-8 (kept: that kernel flags only non-finite values)."""
+    thr = [(3 + 5 * i, i % 20, SPARSE_N + i % 2) for i in range(40)]
+    wide = [(300, 0, 31), (301, 5, 32), (302, 19, 31)]
+    for masked in (False, True):
+        args = suffstat_edge_inputs(4099, 20, 32, gen, device, masked, thr + wide, lpj=True)
+        args["ss"][400:403] = 0  # no bit on
+        args["ss"][410] = args["ss"][410, 0]  # every state the same (sparse)
+        args["ss"][411] = args["ss"][301, 5]  # every state the same, all units on
+        n = args["ss"].sum(-1)
+        assert bool((n == SPARSE_N).any() and (n == SPARSE_N + 1).any() and (n == 32).any())
+        err, flagged = check_lpj_edge(args, f"edges H=32 masked={masked}")
+        say(f"{'sssc_lpj_masked' if masked else 'sssc_lpj'} edges (B=4099 K=20 H=32: |s| = "
+            f"{SPARSE_N}, {SPARSE_N + 1}, 31, 32, rows with no bit on, equal states): max_abs_err "
+            f"{err:.3g}, {int(flagged.sum())} flagged")
+    for Bk, K, Hk in ((5000, 1, 32), (40, 300, 32), (500, 7, 13)):
+        for masked in (False, True):
+            args = suffstat_edge_inputs(Bk, K, Hk, gen, device, masked, lpj=True)
+            err, flagged = check_lpj_edge(args, f"B={Bk} K={K} H={Hk} masked={masked}")
+            say(f"{'sssc_lpj_masked' if masked else 'sssc_lpj'} B={Bk} K={K} H={Hk}: max_abs_err "
+                f"{err:.3g}, {int(flagged.sum())} flagged")
+    dense = [(6, k, 40 + 3 * k) for k in range(7)] + [(6, 7, 64), (9, 2, SPARSE_N + 1)]
+    args = suffstat_edge_inputs(1001, 8, 64, gen, device, True, dense, lpj=True)
+    err, flagged = check_lpj_edge(args, "H=64 dense datapoint")
+    say(f"sssc_lpj_masked B=1001 K=8 H=64, a datapoint's 8 states |s| 40-64: max_abs_err "
+        f"{err:.3g}, {int(flagged.sum())} flagged")
+    caps = [(3 * i + 1, i % 15, n) for i, n in
+            enumerate((16, 17, 16, 17, SPARSE_N, SPARSE_N + 1, 12, 40))]
+    for Bk, Hk in ((2051, 100), (1000, 128)):
+        args = suffstat_edge_inputs(Bk, 15, Hk, gen, device, False, caps, lpj=True)
+        err, flagged = check_lpj_edge(args, f"H={Hk} cap")
+        if not torch.equal(flagged, args["ss"].sum(-1) > 16):
+            raise AssertionError(f"sssc_lpj H={Hk}: flags are not the states past the cap")
+        say(f"sssc_lpj B={Bk} K=15 H={Hk}, |s| = 16, 17, {SPARSE_N}, {SPARSE_N + 1}: max_abs_err "
+            f"{err:.3g}, {int(flagged.sum())} flagged (the states past the cap)")
+    args, _ = sssc_inputs(1000, 20, 32, gen, device)
+    err, flagged = check_lpj_edge(args, "poisoned Psi")
+    if not bool(flagged[-1, 0]):
+        raise AssertionError("sssc_lpj: the poisoned single-unit state is not flagged")
+    say(f"sssc_lpj B=1000 K=20 H=32, poisoned Psi: max_abs_err {err:.3g}, "
+        f"{int(flagged.sum())} flagged")
+    args, poisoned = masked_inputs(1000, 20, 32, gen, device)
+    args = dict(args, Psi=poisoned, ss=args["ss"].clone())
+    args["ss"][40, 3] = 0  # a dense state that holds unit 0
+    args["ss"][40, 3, :12] = 1
+    err, flagged = check_lpj_edge(args, "poisoned Psi")
+    if not torch.equal(flagged, args["ss"][..., 0] != 0):
+        raise AssertionError("sssc_lpj_masked: flags are not the states that hold unit 0")
+    say(f"sssc_lpj_masked B=1000 K=20 H=32, poisoned Psi (a dense state too): max_abs_err "
+        f"{err:.3g}, {int(flagged.sum())} flagged")
+    for masked in (False, True):
+        args = suffstat_edge_inputs(600, 20, 32, gen, device, masked, lpj=True)
+        ss, Psi = args["ss"], args["Psi"]
+        ss[..., :4] = 0
+        Psi[:4, :] = Psi[:, :4] = 0.0
+        Psi[2:4, 2:4] = torch.eye(2, device=device)
+        s2inv = float(args["s2inv"])
+        if masked:  # Psi_AA's first pivot 1e-8, in {2} and {2, 3}
+            Psi[2, 2] = 1e-8
+            ss[2:4, 0] = 0
+            ss[2, 0, 2] = ss[3, 0, 2] = ss[3, 0, 3] = 1
+            rows, want = [(2, 0), (3, 0)], [False, False]
+        else:  # M' = 1 + s2inv Psi_hh G_hh of {h} at 1.5e-6 and 0.5e-6
+            for h, t in ((0, 1.5e-6), (1, 0.5e-6)):
+                Psi[h, h] = (t - 1.0) / (s2inv * float(args["G"][h, h]))
+                ss[h, 0] = 0
+                ss[h, 0, h] = 1
+            rows, want = [(0, 0), (1, 0)], [False, True]
+        err, flagged = check_lpj_edge(args, "small pivots")
+        got = [bool(flagged[r]) for r in rows]
+        if got != want:
+            raise AssertionError(f"small pivots masked={masked}: flags {got}, expected {want}")
+        say(f"{'sssc_lpj_masked' if masked else 'sssc_lpj'} small pivots: flags {got} as "
+            f"expected, max_abs_err {err:.3g}")
 
 
 def bars_data(Hx, N, seed):
@@ -1451,6 +1576,7 @@ def main():
         check_lpj_densities(DEVICE, torch.Generator().manual_seed(4))
         check_suffstat_densities(DEVICE, torch.Generator().manual_seed(5))
         check_sssc_suffstat_edges(DEVICE, torch.Generator().manual_seed(6))
+        check_sssc_lpj_edges(DEVICE, torch.Generator().manual_seed(7))
     with Phase("exact"):
         exact_epoch(launches)
     with Phase("main"):

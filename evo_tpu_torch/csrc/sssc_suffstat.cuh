@@ -51,7 +51,7 @@
 //     (n <= SPARSE_N = 8), dense, or over the cap; each warp turns its
 //     rows' masks into per-latent bitmasks of rows (ballots).
 //  2. Sparse states, a thread each, in an 8 x 8 register tile.  The two
-//     inversions are the unpivoted Gauss-Jordan steps of warp_state.cuh and
+//     inversions are the unpivoted Gauss-Jordan steps of small_solve.cuh and
 //     of the plain version (ops/linalg.py:pd_inverse_logdet), each step
 //     taken only while k < n, so a zero pivot leaves the same non-finite
 //     entries (then 0).  The thread leaves r kappa and the upper triangle of
@@ -83,7 +83,7 @@
 #include <atomic>
 
 #include "state_mask.cuh"
-#include "warp_state.cuh"
+#include "small_solve.cuh"
 
 namespace {
 
@@ -92,18 +92,8 @@ constexpr int SS_NW = SS_THREADS / 32;  // warps
 // rows of a sub-batch at most: at B = 4096, S = 20 units of 256 rows gave
 // the card's 264 blocks one or two units each, units of 128 rows two or three
 constexpr int SS_ROWS = 128;
-constexpr int SPARSE_N = 8;  // states with up to this many units: a thread each
 constexpr int REC = (SPARSE_N + SPARSE_N * (SPARSE_N + 1) / 2) | 1;  // a sparse state's record
 constexpr int UMAX = 32;  // datapoints of a unit at most
-
-__host__ __device__ inline size_t take(size_t& o, size_t bytes) {
-  const size_t at = o;
-  o = (o + bytes + 15) & ~size_t(15);
-  return at;
-}
-
-// floats of a dense state's scratch: lambda, u, kappa, units
-__host__ __device__ inline int dense_floats(int n) { return n * n + 3 * n; }
 
 // Byte offsets of a block's shared memory for width H, S slots, sub-batches
 // of at most RB rows and a pool that holds DQ of the densest states.
@@ -176,67 +166,10 @@ __host__ __device__ constexpr int rec_tri(int i, int j) {
   return i * SPARSE_N - i * (i - 1) / 2 + (j - i);
 }
 
-// 16 bytes from device memory to shared memory, asynchronously
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
-}
-
 // 16 state bytes at chunk c of a run of `bytes` (zeros past its end)
 __device__ __forceinline__ uint4 load_chunk(const uint8_t* base, int c, int bytes, bool aligned) {
   const int avail = bytes - 16 * c;
   return avail > 0 ? load16(base + 16 * c, avail, aligned) : make_uint4(0u, 0u, 0u, 0u);
-}
-
-// In-place inverse of A by unpivoted Gauss-Jordan, the steps of
-// warp_state.cuh:gauss_jordan_inverse on the leading n x n block (entries
-// past n are scratch and never reach it).
-template <int N>
-__device__ __forceinline__ void gauss_jordan_regs(float (&A)[N][N], int n) {
-#pragma unroll
-  for (int k = 0; k < N; ++k) {
-    if (k < n) {
-      const float ip = 1.f / A[k][k];
-#pragma unroll
-      for (int j = 0; j < N; ++j)
-        if (j != k) A[k][j] *= ip;
-#pragma unroll
-      for (int i = 0; i < N; ++i)
-#pragma unroll
-        for (int j = 0; j < N; ++j)
-          if (i != k && j != k) A[i][j] -= A[i][k] * A[k][j];
-#pragma unroll
-      for (int i = 0; i < N; ++i)
-        if (i != k) A[i][k] *= -ip;
-      A[k][k] = ip;
-    }
-  }
-}
-
-// The same inverse of A (row-major n x n in a warp's shared memory), a
-// warp, n <= 64: lane j takes columns j and j + 32, the rows in turn.
-__device__ void gauss_jordan_cols(float* A, int n, int lane) {
-  const int j0 = lane, j1 = lane + 32;
-  __syncwarp();
-  for (int k = 0; k < n; ++k) {
-    const float ip = 1.f / A[k * n + k];
-    float r0 = 0.f, r1 = 0.f;  // this lane's entries of the scaled row k
-    if (j0 < n && j0 != k) r0 = (A[k * n + j0] *= ip);
-    if (j1 < n && j1 != k) r1 = (A[k * n + j1] *= ip);
-#pragma unroll 4
-    for (int i = 0; i < n; ++i) {  // row k and column k stay as they are
-      const float aik = A[i * n + k];
-      if (i != k && j0 < n && j0 != k) A[i * n + j0] -= aik * r0;
-      if (i != k && j1 < n && j1 != k) A[i * n + j1] -= aik * r1;
-    }
-    __syncwarp();
-    for (int i = lane; i < n; i += 32) A[i * n + k] = i != k ? A[i * n + k] * -ip : ip;
-    __syncwarp();
-  }
 }
 
 template <bool MASKED>

@@ -38,7 +38,11 @@ to H = ``MASKED_MAX_H`` = 64 (the TPU kernels' Hp <= 64).
 
 ``sssc_lpj`` and ``sssc_lpj_masked`` run the kernel on a CUDA tensor and
 the plain version (``sssc_lpj_plain``, ``sssc_lpj_masked_plain``) on a
-CPU tensor; nothing falls back from one to the other.
+CPU tensor; nothing falls back from one to the other.  Both kernels are
+thin entry points over one body, csrc/sssc_lpj.cuh: a thread solves a state
+with up to ``SPARSE_N`` active units in registers and a warp a denser
+one, each state writing only its own lpj and bad, so the outputs are the
+same from run to run.
 """
 
 from __future__ import annotations
@@ -51,6 +55,7 @@ from evo_tpu_torch.ops.linalg import pd_inverse_logdet
 MAX_H = 128
 MASKED_MAX_H = 64
 PIVOT_TINY = 1e-6
+SPARSE_N = 8  # the SSSC kernels' sparse path: states with up to 8 units, a thread each
 
 
 def overflow_cap(H: int) -> int:

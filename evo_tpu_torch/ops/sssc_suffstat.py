@@ -43,6 +43,7 @@ from evo_tpu_torch.ops import _build
 from evo_tpu_torch.ops.linalg import pd_inverse_logdet
 from evo_tpu_torch.ops.sssc_lpj import (
     MASKED_MAX_H,
+    SPARSE_N,
     active_groups,
     check_f32,
     check_states,
@@ -51,8 +52,6 @@ from evo_tpu_torch.ops.sssc_lpj import (
     gram_sub,
     overflow_cap,
 )
-
-SPARSE_N = 8  # the kernels' sparse path: states with up to 8 units, a thread each
 
 
 def _finite(x: torch.Tensor) -> torch.Tensor:
