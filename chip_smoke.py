@@ -45,6 +45,19 @@ Phases, one line each with its seconds:
                E-step options (background with swap_merge, allzero with the
                whole-set merge, packed states with the whole-set merge that
                rejects nothing), each checked well formed
+ 15. trainer   phase 5's configuration through the training entry point,
+               apps.training.EMTrainer, logging F to a text DataLog: run A
+               steps 4 epochs one by one with a checkpoint every 2; run B
+               resumes from A's epoch-2 checkpoint and runs epochs 3-4 as one
+               chunk (em_steps); B's F per epoch, parameters and states must
+               equal A's bit for bit, as must em_steps over the 4 epochs and
+               the bare em_step loop, each with its launch counts checked;
+               ms per epoch of the three, and the seconds to write and read
+               the full-width checkpoint
+ 16. bars_app  the bars test's setup at the CLI defaults (H = 8, N = 500,
+               S = 20) through EMTrainer: EBSC 40 epochs in chunks of 4, ES3C
+               10 epochs; F finite and rising, printed against the exact
+               likelihood L_gen, launch counts checked
 The kernels phase also holds the ES3C kernels, the masked ones (incomplete
 data) included, against their plain versions at those paths' shapes, and
 the packed-input EBSC kernels against their plain versions and, bit for
@@ -74,8 +87,9 @@ the kernels' numbers and, last, the result line.
 Any failed check raises and the script exits non-zero; it also exits
 non-zero without a result when no CUDA card is present.  The whole run is
 under a self-enforced 600 s deadline.  It imports only evo_tpu_torch,
-torch and numpy (so it fails at once outside the repository), and starts no
-process but nvcc and nvidia-smi.
+torch and numpy (so it fails at once outside the repository), needs neither
+h5py nor matplotlib, writes only under the temporary directory, and starts
+no process but nvcc and nvidia-smi.
 """
 
 import dataclasses
@@ -83,6 +97,8 @@ import json
 import os
 import subprocess
 import sys
+import tarfile
+import tempfile
 import threading
 import time
 
@@ -90,9 +106,13 @@ import numpy as np
 import torch
 
 from evo_tpu_torch import BSC, SSSC, SSSCParams, init_states, make_data
-from evo_tpu_torch.models.base import block_gram
+from evo_tpu_torch.apps import bars
+from evo_tpu_torch.apps.common import chunking_kwargs
+from evo_tpu_torch.apps.training import EMTrainer
+from evo_tpu_torch.models.base import block_gram, em_steps, epoch_generator
 from evo_tpu_torch.ops import _build
-from evo_tpu_torch.ops.bitpack import n_bytes_lane, pack_bits_lane, unpack_bits_lane
+from evo_tpu_torch.ops.bitpack import (
+    n_bytes_lane, pack_bits_lane, pack_bits_u8, unpack_bits_lane)
 from evo_tpu_torch.ops.bsc_lpj import bsc_lpj, bsc_lpj_plain, key_words
 from evo_tpu_torch.ops.bsc_suffstat import bsc_suffstat, bsc_suffstat_plain
 from evo_tpu_torch.ops.sssc_lpj import (
@@ -110,6 +130,7 @@ from evo_tpu_torch.ops.sssc_suffstat import (
 )
 from evo_tpu_torch.prepost import MultiDimOverlappingPatches
 from evo_tpu_torch.prepost.device_merge import DeviceMerger
+from evo_tpu_torch.utils.datalog import DataLog, StoreToTxt
 
 DEADLINE_S = 600
 DEVICE = "cuda"
@@ -1514,6 +1535,170 @@ def eopts(launches):
                                      f"{float(st.S_nunique)} with nothing rejected")
 
 
+METRICS = ("F", "S_nunique", "S_sub")
+
+
+def metrics_log(outdir):
+    """A DataLog writing the per-epoch metrics as text into
+    outdir/metrics.txt (Theta reaches no handler)."""
+    os.makedirs(outdir, exist_ok=True)
+    dlog = DataLog()
+    dlog.set_handler(list(METRICS), StoreToTxt, os.path.join(outdir, "metrics.txt"))
+    return dlog
+
+
+def logged_F(outdir):
+    """F per epoch as the DataLog wrote it (repr of a float: exact)."""
+    with open(os.path.join(outdir, "metrics.txt")) as f:
+        return [float(ln.split(" = ")[1]) for ln in f if ln.startswith("F = ")]
+
+
+def trace_spans(outdir, name):
+    """Seconds between each ``name:begin`` and ``name:end`` in the trainer's
+    trace archive."""
+    with tarfile.open(os.path.join(outdir, "traces.tgz")) as tar:
+        lines = tar.extractfile(tar.getmembers()[0]).read().decode().splitlines()
+    t = {}
+    for ln in lines[1:]:
+        stamp, point = ln.split(" ", 1)
+        t.setdefault(point, []).append(float(stamp))
+    return [b - a for a, b in zip(t[f"{name}:begin"], t[f"{name}:end"])]
+
+
+def same_run(label, a, b):
+    """Params and states of two runs equal bit for bit."""
+    (pa, ea), (pb, eb) = a, b
+    for name in vars(pa):
+        if not torch.equal(getattr(pa, name), getattr(pb, name)):
+            raise AssertionError(f"{label}: {name} differs")
+    if not (torch.equal(ea.ss, eb.ss) and torch.equal(ea.lpj, eb.lpj)):
+        raise AssertionError(f"{label}: the states or their lpj differ")
+
+
+def trainer(launches):
+    """The EBSC primary through EMTrainer (run A: 4 epochs one by one, a
+    checkpoint every 2; run B: A's epoch-2 checkpoint resumed, epochs 3-4
+    as one em_steps chunk), then em_steps over the 4 epochs and the bare
+    em_step loop with epoch_generator, all from the same Theta^0 and states;
+    every run's F, parameters and states equal bit for bit, 2 lpj and 1
+    suffstat launches per block and epoch."""
+    t0 = time.perf_counter()
+    model, data, cfg, estate0, params0 = primary_setup(DEVICE)
+    torch.cuda.synchronize()
+    say(f"set-up {time.perf_counter() - t0:.1f} s")
+    seed, n = 7, 4
+    per_epoch = dict(lpj=2 * N_BLOCKS, suffstat=N_BLOCKS)
+
+    def counts(epochs):
+        return {k: v * epochs for k, v in per_epoch.items()}
+
+    with tempfile.TemporaryDirectory() as tmp:
+        dir_a, dir_b = os.path.join(tmp, "a"), os.path.join(tmp, "b")
+        kept = os.path.join(tmp, "epoch2.npz")
+
+        def keep_epoch2(epoch, **_):
+            # the epoch-2 checkpoint is replaced after epoch 4; keep a link
+            if epoch == 3:
+                os.link(os.path.join(dir_a, "checkpoint.npz"), kept)
+
+        dlog = metrics_log(dir_a)
+        run_a = EMTrainer(model, cfg, params0, estate0, data, dlog, dir_a, seed=seed,
+                          checkpoint_every=2, tracefile="trace-%04d.txt")
+        launches.reset()
+        t = time.perf_counter()
+        p_a, e_a, _ = run_a.run(n, epoch_callback=keep_epoch2)
+        wall_a = time.perf_counter() - t
+        launches.expect(**counts(n))
+        dlog.close()
+        F_a = logged_F(dir_a)
+        step_s, ckpt_s = trace_spans(dir_a, "em_step"), trace_spans(dir_a, "checkpoint")
+        size = os.path.getsize(kept) / 1e6
+
+        dlog = metrics_log(dir_b)
+        t = time.perf_counter()
+        # seed 0 here: the checkpoint's seed (7) must take its place
+        run_b = EMTrainer(model, cfg, params0, estate0, data, dlog, dir_b, seed=0, resume=kept,
+                          theta_append=False, chunk_epochs=2)
+        read_s = time.perf_counter() - t
+        if (run_b.start_epoch, run_b.seed) != (2, seed):
+            raise AssertionError(f"resumed at {run_b.start_epoch} with seed {run_b.seed}")
+        launches.reset()
+        p_b, e_b, _ = run_b.run(n)
+        launches.expect(**counts(2))
+        dlog.close()
+        F_b = logged_F(dir_b)
+    say(f"run A F per epoch {F_a}; run B (resumed at epoch 2, one chunk) {F_b}")
+    if len(F_a) != n or not all(np.isfinite(F_a)) or F_b != F_a[2:]:
+        raise AssertionError("run B's F per epoch differs from run A's epochs 3-4")
+    same_run("run B against run A", (p_a, e_a), (p_b, e_b))
+    del p_b, e_b
+
+    # the part of a checkpoint write before NumPy compresses it
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    packed = [pack_bits_u8(b).cpu() for b in e_a.ss]
+    pack_s = time.perf_counter() - t
+    del packed
+
+    launches.reset()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    p_s, e_s, st = em_steps(model, params0, estate0, data, seed, cfg, n)
+    torch.cuda.synchronize()
+    steps_ms = 1e3 * (time.perf_counter() - t) / n
+    launches.expect(**counts(n))
+    if st.F.cpu().tolist() != F_a:
+        raise AssertionError(f"em_steps F {st.F.cpu().tolist()} differs from run A's")
+    same_run("em_steps against run A", (p_a, e_a), (p_s, e_s))
+    del p_s, e_s
+
+    launches.reset()
+    t = time.perf_counter()
+    p, e = params0, estate0
+    for k in range(n):
+        p, e, _, _ = model.em_step(p, e, data, epoch_generator(seed, k, DEVICE), cfg)
+    torch.cuda.synchronize()
+    bare_ms = 1e3 * (time.perf_counter() - t) / n
+    launches.expect(**counts(n))
+    same_run("the bare em_step loop against run A", (p_a, e_a), (p, e))
+    say(f"run A per epoch (em_step and its stats' one transfer) "
+        f"{[round(1e3 * x, 1) for x in step_s]} ms, whole run {wall_a:.2f} s with "
+        f"{len(ckpt_s)} checkpoints; em_steps {steps_ms:.1f} ms an epoch; bare em_step "
+        f"loop {bare_ms:.1f} ms an epoch; on {CARD['smi']}")
+    say(f"checkpoint of {e_a.ss.numel() / 1e9:.2f} GB of int8 states ({size:.0f} MB on "
+        f"disk): write {[round(x, 2) for x in ckpt_s]} s (of which packing on the card and "
+        f"copying to the host {pack_s:.2f} s), read (resume) {read_s:.2f} s on {CARD['smi']}")
+
+
+def bars_app(launches):
+    """The bars test at the CLI's defaults (H = 8, N = 500, S = 20; EBSC 40
+    epochs in chunks of 4, as chunking_kwargs sets them; ES3C 10 epochs),
+    built by apps.bars.build and trained by EMTrainer with a text DataLog:
+    F finite and rising, against L_gen; launch counts: the exact oracle's
+    one, then 2 lpj and 1 suffstat per epoch."""
+    for argv in (["ebsc", "--chunk_epochs", "4"], ["es3c", "--no_epochs", "10"]):
+        args = bars.get_args(argv)
+        launches.reset()
+        b = bars.build(args, DEVICE)
+        with tempfile.TemporaryDirectory() as tmp:
+            dlog = metrics_log(tmp)
+            tr = EMTrainer(b["model"], b["cfg"], b["params"], b["estate"], b["data"], dlog, tmp,
+                           seed=args.seed + 1, **chunking_kwargs(args))
+            tr.run(args.no_epochs)
+            dlog.close()
+            F = logged_F(tmp)
+        E = args.no_epochs
+        if args.algo == "ebsc":
+            launches.expect(lpj=2 * E + 1, suffstat=E)
+        else:
+            launches.expect(sssc_lpj=2 * E + 1, sssc_suffstat=E)
+        say(f"{args.algo} H={args.H} N={args.no_data_points} S={args.Ksize} "
+            f"chunk_epochs={args.chunk_epochs}: F {F[0]:.4f} -> {F[-1]:.4f} over {E} "
+            f"epochs, L_gen {b['L_gen']:.4f}")
+        if len(F) != E or not all(np.isfinite(F)) or not F[-1] > F[0]:
+            raise AssertionError(f"{args.algo}: F not finite or not rising: {F}")
+
+
 class Launches:
     """Reads and resets the kernel wrappers' launch counters (the packed
     modes of the EBSC kernels count apart from their int8 modes)."""
@@ -1620,6 +1805,10 @@ def main():
         del packed
     with Phase("eopts"):
         eopts(launches)
+    with Phase("trainer"):
+        trainer(launches)
+    with Phase("bars_app"):
+        bars_app(launches)
 
     kernels = [
         dict(name="bsc_lpj", route="cuda", source="evo_tpu_torch/csrc/bsc_lpj.cu",

@@ -6,7 +6,9 @@ hand-written CUDA kernels for the hot paths.  Importing it imports neither
 JAX nor ``evo_tpu``.
 
 Entry points (``make_data``, ``init_states``, ``BSC``, ``SSSC``) run on the
-CUDA card unless the caller passes ``device="cpu"``.  TF32 is switched off
+CUDA card unless the caller passes ``device="cpu"``; the bars app
+(``python -m evo_tpu_torch.apps.bars``) runs on the card unless
+``EVO_PLATFORM=cpu`` is set.  TF32 is switched off
 for the whole process: the Gram products feed cancellation-sensitive
 quadratic forms and must be true f32 (evo_tpu/models/base.py:134-137 forces the
 highest matmul precision for the same reason).

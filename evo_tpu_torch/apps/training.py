@@ -1,0 +1,256 @@
+"""The apps' epoch loop (counterpart: evo_tpu/apps/training.py), with
+checkpoint and resume.
+
+Epoch e draws from ``epoch_generator(seed, e)``, so a run stepped epoch by
+epoch, the same run in chunks (``chunk_epochs``, through
+``models.base.em_steps``) and a run resumed from a checkpoint follow one
+trajectory bit for bit.
+
+Observability:
+  - theta_append=False overwrites the parameter tables (DataLog.assign),
+    so training.h5 keeps a constant size; chunked epochs need it.
+  - tracefile writes host tracepoints around every phase of an epoch
+    (em_step or em_steps, log, epoch_callback, checkpoint).
+  - device_trace_every=N records one epoch in every N with torch.profiler
+    into <outdir>/device_trace (a Chrome trace).
+Each epoch's (or chunk's) statistics reach the host in one transfer.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import os
+import time
+import warnings
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from evo_tpu_torch.apps.common import merge_dict, params_to_dict, to_host
+from evo_tpu_torch.models.base import StepStats, check_single_process, em_steps, epoch_generator
+from evo_tpu_torch.models.sssc import SSSC
+from evo_tpu_torch.ops.sssc_lpj import overflow_cap
+from evo_tpu_torch.utils import tracing
+from evo_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
+
+
+def stats_to_host(stats: StepStats) -> StepStats:
+    """Every field (0-dim, or [n] from em_steps) to NumPy in one transfer:
+    the fields go through one f64 tensor, which holds f32 values and the
+    counters exactly."""
+    names = [f.name for f in dataclasses.fields(StepStats)]
+    vals = [getattr(stats, n) for n in names]
+    host = to_host({"all": torch.stack([v.to(torch.float64) for v in vals])})["all"]
+    return StepStats(**{n: host[i].astype(torch.empty(0, dtype=v.dtype).numpy().dtype)
+                        for i, (n, v) in enumerate(zip(names, vals))})
+
+
+class EMTrainer:
+    def __init__(self, model, cfg, params, estate, data, dlog, outdir: str,
+                 seed: int = 0, checkpoint_every: int = 0,
+                 resume: Optional[str] = None, theta_append: bool = True,
+                 tracefile: Optional[str] = None, device_trace_every: int = 0,
+                 chunk_epochs: int = 1):
+        self.model, self.cfg, self.data = model, cfg, data
+        self.params, self.estate = params, estate
+        self._overflow_nan_streak, self._overflow_warned = 0, False
+        self.dlog, self.outdir = dlog, outdir
+        self.checkpoint_every = checkpoint_every
+        self.theta_append = theta_append
+        self.device_trace_every = device_trace_every
+        # chunk_epochs > 1: runs of epochs the host need not see go through
+        # em_steps.  Their F/S_*/guard metrics are still logged per epoch;
+        # Theta and epoch_callback only at a chunk's end, whence the
+        # overwrite mode.  Device-trace epochs run solo, and checkpoint
+        # boundaries end chunks.
+        self.chunk_epochs = max(1, int(chunk_epochs))
+        if self.chunk_epochs > 1 and theta_append:
+            raise ValueError(
+                "chunk_epochs > 1 cannot log Theta per epoch "
+                "(intermediate params stay on device); use "
+                "theta_append=False (the Theta-overwrite logging mode)")
+        self.start_epoch = 0
+        self.seed = seed
+        self._tracing = bool(tracefile)
+        if tracefile:
+            if not os.path.isabs(tracefile) and os.path.sep not in tracefile:
+                tracefile = os.path.join(outdir, tracefile)
+            tracing.set_tracefile(tracefile)
+        if resume:
+            self.params, self.estate, self.start_epoch, self.seed = load_checkpoint(
+                resume, params_like=self.params, cfg=self.cfg, model=self.model, data=self.data)
+            print(f"Resumed from {resume} at epoch {self.start_epoch}")
+
+    def _log_epoch(self, stats, log_theta: bool = True):
+        metrics = {"F": float(stats.F), "S_nunique": float(stats.S_nunique),
+                   "S_sub": float(stats.S_sub)}
+        if not log_theta:
+            self.dlog.append_all(metrics)
+            return
+        theta = params_to_dict(self.params)
+        if self.theta_append:
+            self.dlog.append_all(merge_dict(metrics, theta))
+        else:
+            # overwrite mode: training.h5 holds only the latest Theta
+            self.dlog.append_all(metrics)
+            for name, value in theta.items():
+                self.dlog.assign(name, value)
+
+    def _print_guards(self, stats):
+        for name in ("n_reset_nan", "n_reset_small", "n_reset_inf",
+                     "n_guard_sigma_floor", "n_guard_mus_freeze", "n_guard_psi_freeze"):
+            v = int(getattr(stats, name))
+            if v > 0:
+                print(f"\t{name} = {v}")
+        self._warn_bucket_overflow(int(stats.n_reset_nan))
+        renorm = float(stats.guard_psi_renorm)
+        if renorm > 0.1:  # only non-trivial gauge corrections
+            print(f"\tguard_psi_renorm = {renorm:.3f}")
+
+    def _warn_bucket_overflow(self, n_reset_nan: int):
+        """At 64 < H <= 128 the SSSC kernels flag states with more than
+        ``overflow_cap(H)`` (16) active units as bad instead of evaluating
+        them, and their lpj is reset: exact under sparse priors, lossy if
+        pies drift dense.  Nonzero nan-reset counters for 3 epochs in a row
+        are the symptom; warn once."""
+        if n_reset_nan == 0:
+            self._overflow_nan_streak = 0
+            return
+        if self._overflow_warned or not isinstance(self.model, SSSC) or self.model.H <= 64:
+            return
+        self._overflow_nan_streak += 1
+        if self._overflow_nan_streak >= 3:
+            self._overflow_warned = True
+            warnings.warn(
+                f"n_reset_nan nonzero for {self._overflow_nan_streak} "
+                f"consecutive epochs at H={self.model.H}: the SSSC kernels "
+                f"flag states with more than {overflow_cap(self.model.H)} "
+                "active units as bad and reset their lpj instead of "
+                "evaluating them. If pies have drifted dense, the "
+                "posterior over such states is lost.", RuntimeWarning)
+
+    def _maybe_checkpoint(self, epoch: int):
+        """Write the checkpoint if ``epoch`` is a boundary (shared by the
+        per-epoch and chunked paths, so that their files are alike)."""
+        if not (self.checkpoint_every and epoch % self.checkpoint_every == 0):
+            return
+        tracing.tracepoint("checkpoint:begin")
+        path = os.path.join(self.outdir, "checkpoint.npz")
+        save_checkpoint(path, self.params, self.estate, epoch, self.seed,
+                        cfg=self.cfg, model=self.model, data=self.data)
+        tracing.tracepoint("checkpoint:end")
+        print(f"\tcheckpoint -> {path}")
+
+    def _chunk_len(self, e: int, no_epochs: int, reconstruct_at) -> int:
+        """Largest n <= chunk_epochs such that epochs [e, e+n) need no host
+        step inside: no reconstruction or device-trace epoch, and any
+        checkpoint boundary falls at the chunk's end."""
+        n = 0
+        for b in range(e, min(e + self.chunk_epochs, no_epochs)):
+            if reconstruct_at is not None and bool(reconstruct_at(b)):
+                break  # solo: the host consumes y_rec
+            if self.device_trace_every and (b + 1) % self.device_trace_every == 0:
+                break  # solo: the profiler brackets a single em_step
+            n += 1
+            if self.checkpoint_every and (b + 1) % self.checkpoint_every == 0:
+                break  # the checkpoint needs the state here
+        return max(1, n)
+
+    def _run_chunk(self, e: int, n: int, no_epochs: int, epoch_callback):
+        """Epochs [e, e+n) through em_steps.  Per-epoch metrics are logged
+        from the stacked stats; Theta (overwrite mode) and epoch_callback
+        once at the chunk's end.  Returns (next epoch, host stats of the
+        last epoch)."""
+        self.dlog.progress(f"Epochs {e + 1}-{e + n} of {no_epochs} (one chunk)")
+        t0 = time.time()
+        tracing.tracepoint("em_steps:begin")
+        self.params, self.estate, stats_all = em_steps(
+            self.model, self.params, self.estate, self.data, self.seed, self.cfg, n, e0=e)
+        stats_all = stats_to_host(stats_all)
+        tracing.tracepoint("em_steps:end")
+
+        tracing.tracepoint("log:begin")
+        stats = None
+        for i in range(n):
+            stats = StepStats(**{k: v[i] for k, v in vars(stats_all).items()})
+            self._log_epoch(stats, log_theta=(i == n - 1))
+            self._print_guards(stats)
+        tracing.tracepoint("log:end")
+        if epoch_callback is not None:
+            tracing.tracepoint("epoch_callback:begin")
+            epoch_callback(epoch=e + n, F=float(stats.F), params=self.params, stats=stats,
+                           y_rec=None)
+            tracing.tracepoint("epoch_callback:end")
+        self._maybe_checkpoint(e + n)
+        print("\tTotal chunk runtime : %.2f s (%d epochs)" % (time.time() - t0, n))
+        return e + n, stats
+
+    def run(self, no_epochs: int, reconstruct_at: Optional[Callable[[int], bool]] = None,
+            epoch_callback: Optional[Callable] = None):
+        """Train up to epoch ``no_epochs`` (from the resumed epoch, if any).
+
+        ``epoch_callback(epoch=, F=, params=, stats=, y_rec=)`` is called
+        after each logged epoch; with chunk_epochs > 1 only at a chunk's
+        end (``epoch`` then jumps by the chunk's length and ``y_rec`` is
+        None).  The per-epoch metrics of every epoch are logged either way.
+        Returns (params, estate, host stats of the last epoch)."""
+        stats = None
+        if self.start_epoch >= no_epochs:
+            # resumed at (or past) the final epoch: no step to run, but the
+            # callers read stats.F, taken here from the checkpointed state
+            print(f"Training already complete at epoch {self.start_epoch} "
+                  f">= {no_epochs}; nothing to run")
+            F = self.model.free_energy(self.params, self.estate, self.data)
+            z = np.zeros((), np.int64)
+            stats = StepStats(F=to_host({"F": F})["F"], S_nunique=z, S_sub=z, n_reset_nan=z,
+                              n_reset_small=z, n_reset_inf=z, n_guard_sigma_floor=z,
+                              n_guard_mus_freeze=z, n_guard_psi_freeze=z,
+                              guard_psi_renorm=np.zeros((), np.float32))
+        dev = self.data.y.device
+        e = self.start_epoch
+        while e < no_epochs:
+            n_chunk = (self._chunk_len(e, no_epochs, reconstruct_at)
+                       if self.chunk_epochs > 1 else 1)
+            if n_chunk > 1:
+                e, stats = self._run_chunk(e, n_chunk, no_epochs, epoch_callback)
+                continue
+            rec = bool(reconstruct_at(e)) if reconstruct_at else False
+            self.dlog.progress(f"Epoch {e + 1} of {no_epochs}")
+            t0 = time.time()
+            capture = self.device_trace_every and (e + 1) % self.device_trace_every == 0
+            profile_dir = os.path.join(self.outdir, "device_trace")
+            tracing.tracepoint("em_step:begin")
+            with tracing.device_trace(profile_dir) if capture else contextlib.nullcontext():
+                self.params, self.estate, stats, y_rec = self.model.em_step(
+                    self.params, self.estate, self.data, epoch_generator(self.seed, e, dev),
+                    self.cfg, do_reconstruction=rec)
+                stats = stats_to_host(stats)  # also the step's completion barrier
+            F = float(stats.F)
+            tracing.tracepoint("em_step:end")
+            if capture:
+                print(f"\tdevice trace -> {profile_dir}")
+
+            tracing.tracepoint("log:begin")
+            self._log_epoch(stats)
+            tracing.tracepoint("log:end")
+            self._print_guards(stats)
+            if epoch_callback is not None:
+                tracing.tracepoint("epoch_callback:begin")
+                epoch_callback(epoch=e + 1, F=F, params=self.params, stats=stats, y_rec=y_rec)
+                tracing.tracepoint("epoch_callback:end")
+            self._maybe_checkpoint(e + 1)
+            print("\tTotal epoch runtime : %.2f s" % (time.time() - t0))
+            e += 1
+        if self._tracing:
+            tracing.close(os.path.join(self.outdir, "traces.tgz"))
+        return self.params, self.estate, stats
+
+
+def gather_reconstruction(y_rec: torch.Tensor, N: int) -> np.ndarray:
+    """Blocked reconstruction [nb, B, D] -> host [N, D] without the padding
+    rows (single process; the multi-process gather is not ported yet)."""
+    check_single_process("gather_reconstruction")
+    arr = to_host({"y": y_rec})["y"]
+    return arr.reshape((-1, arr.shape[-1]))[:N]

@@ -1,8 +1,15 @@
 """Data container, blocking and per-epoch statistics.
 
 Counterpart: evo_tpu/models/base.py (``Data``, ``pad_rows``, ``make_data``,
-``block_gram``, ``StepStats``).  Every per-datapoint tensor is blocked
-[nb, B, ...]; each model's ``em_step`` loops over the nb blocks.
+``blockify``, ``unblockify``, ``block_gram``, ``StepStats``, ``em_steps``).
+Every per-datapoint tensor is blocked [nb, B, ...]; each model's ``em_step``
+loops over the nb blocks.
+
+Randomness: evo_tpu's epoch e draws from ``fold_in(key, e)``; here epoch e
+draws from ``epoch_generator(seed, e, device)``, a ``torch.Generator``
+seeded from a fixed 64-bit mix of (seed, e).  Epoch e's draws depend on the
+seed and e only, so stepping epoch by epoch, ``em_steps`` over any window
+and a resume from a checkpoint all give the same trajectory.
 """
 
 from __future__ import annotations
@@ -75,6 +82,29 @@ def make_data(y: np.ndarray, x: Optional[np.ndarray] = None, n_blocks: int = 1,
                 row_valid=blk(row_valid), incomplete=incomplete)
 
 
+def _map_leaves(fn, tree):
+    """``fn`` on a tensor or NumPy array, or on every such field of a
+    dataclass (``Data``, ``EState``, the params); other fields
+    (``Data.incomplete``) stay as they are."""
+    if isinstance(tree, (torch.Tensor, np.ndarray)):
+        return fn(tree)
+    if dataclasses.is_dataclass(tree):
+        return dataclasses.replace(tree, **{
+            f.name: _map_leaves(fn, getattr(tree, f.name)) for f in dataclasses.fields(tree)})
+    return tree
+
+
+def blockify(tree, n_blocks: int):
+    """[N, ...] -> [nb, N/nb, ...] on every leaf."""
+    return _map_leaves(
+        lambda a: a.reshape((n_blocks, a.shape[0] // n_blocks) + tuple(a.shape[1:])), tree)
+
+
+def unblockify(tree):
+    """[nb, B, ...] -> [nb*B, ...] on every leaf."""
+    return _map_leaves(lambda a: a.reshape((-1,) + tuple(a.shape[2:])), tree)
+
+
 def check_em_step(data: Data, do_reconstruction: bool):
     """Raise the ValueError evo_tpu raises for incomplete data without
     reconstruction (its M-step consumes the reconstruction:
@@ -85,13 +115,14 @@ def check_em_step(data: Data, do_reconstruction: bool):
             "consumes the reconstructed data for its W update")
 
 
-def check_single_process():
+def check_single_process(what: str = "initialization"):
     """Raise NotImplementedError under a torch.distributed group of more
     than one process: Theta^0 from the global sums of all processes
-    (evo_tpu's ``global_init_stats``) is not ported yet."""
+    (evo_tpu's ``global_init_stats``) and the multi-process checkpoint are
+    not ported yet."""
     if torch.distributed.is_available() and torch.distributed.is_initialized() \
             and torch.distributed.get_world_size() > 1:
-        raise NotImplementedError("multi-process initialization is not ported yet")
+        raise NotImplementedError(f"multi-process {what} is not ported yet")
 
 
 def host_data(data: Data, D: int, y_host=None):
@@ -153,3 +184,50 @@ class StepStats:
     n_guard_mus_freeze: torch.Tensor
     n_guard_psi_freeze: torch.Tensor
     guard_psi_renorm: torch.Tensor
+
+
+_MASK64 = (1 << 64) - 1
+
+
+def _splitmix64(x: int) -> int:
+    x = (x + 0x9E3779B97F4A7C15) & _MASK64
+    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
+    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & _MASK64
+    return x ^ (x >> 31)
+
+
+def epoch_generator(seed: int, e: int, device) -> torch.Generator:
+    """The generator of epoch ``e`` of a run seeded with ``seed`` (both
+    non-negative), on ``device``: seeded from SplitMix64(SplitMix64(seed) +
+    e), computed on the host, so making it costs no device operation."""
+    if seed < 0 or e < 0:
+        raise ValueError(f"seed {seed} and epoch {e} must be non-negative")
+    mixed = _splitmix64((_splitmix64(seed & _MASK64) + e) & _MASK64)
+    return torch.Generator(device=device).manual_seed(mixed)
+
+
+def em_steps(model, params, estate, data: Data, seed: int, cfg, n_epochs: int, e0: int = 0):
+    """``n_epochs`` EM epochs with no host step between them: epoch e0 + e
+    runs ``model.em_step`` with ``epoch_generator(seed, e0 + e)``, so the
+    trajectory is the one of stepping the same epochs one by one with those
+    generators, bit for bit.  Nothing in the loop waits for the card.
+
+    Complete data only: incomplete data need the reconstruction of every
+    epoch, so use ``em_step`` with ``do_reconstruction=True`` (raises here).
+
+    Returns (params, estate, stats) with every ``StepStats`` field stacked
+    into an [n_epochs] tensor on the device."""
+    if data.incomplete:
+        raise ValueError(
+            "em_steps supports complete data only: incomplete data "
+            "requires per-epoch reconstruction (use em_step with "
+            "do_reconstruction=True)")
+    dev = data.y.device
+    per_epoch = []
+    for e in range(n_epochs):
+        params, estate, stats, _ = model.em_step(
+            params, estate, data, epoch_generator(seed, e0 + e, dev), cfg)
+        per_epoch.append(stats)
+    stacked = StepStats(**{f.name: torch.stack([getattr(s, f.name) for s in per_epoch])
+                           for f in dataclasses.fields(StepStats)})
+    return params, estate, stacked

@@ -148,14 +148,19 @@ class BSC:
 
     # ------------------------------------------------------------ generation
 
+    def generate_from_hidden(self, params: BSCParams, s: torch.Tensor,
+                             generator: torch.Generator) -> dict:
+        """y = W s + sigma * noise for given states s [N, H]."""
+        dt = params.W.dtype
+        y_mean = s.to(dt) @ params.W.T
+        noise = torch.randn(y_mean.shape, generator=generator, device=params.W.device, dtype=dt)
+        return {"y": y_mean + params.sigma * noise, "s": s, "y_mean": y_mean}
+
     def generate_data(self, params: BSCParams, N: int,
                       generator: torch.Generator) -> dict:
-        """s_h ~ Bernoulli(pi) (as p <= pi), y = W s + sigma * noise."""
-        dev, dt = params.W.device, params.W.dtype
-        s = torch.rand((N, self.H), generator=generator, device=dev) <= params.pi
-        y_mean = s.to(dt) @ params.W.T
-        noise = torch.randn(y_mean.shape, generator=generator, device=dev, dtype=dt)
-        return {"y": y_mean + params.sigma * noise, "s": s, "y_mean": y_mean}
+        """s_h ~ Bernoulli(pi) (as p <= pi), then generate_from_hidden."""
+        p = torch.rand((N, self.H), generator=generator, device=params.W.device)
+        return self.generate_from_hidden(params, p <= params.pi, generator)
 
     # ------------------------------------------------------------ precompute
 

@@ -81,3 +81,23 @@ class MultiDimOverlappingPatches:
         D = patches.shape[0] // self.C
         return np.stack([o.set_and_merge(patches[c * D:(c + 1) * D], merge_method)
                          for c, o in enumerate(self.ovps)], axis=2)
+
+
+def extract_random_patches(images: np.ndarray, patch_height: int, patch_width: int,
+                           num_patches: int, rng=None) -> np.ndarray:
+    """``num_patches`` random patches from a stack of images [n_img, H, W] or
+    [n_img, H, W, C] -> [num_patches, ph*pw*C], channel-major in each row,
+    drawn from ``rng`` (default: ``np.random.default_rng(0)``)."""
+    rng = rng or np.random.default_rng(0)
+    images = np.asarray(images)
+    if images.ndim == 3:
+        images = images[..., None]
+    n_img, Hh, Ww, C = images.shape
+    ii = rng.integers(0, n_img, num_patches)
+    ys = rng.integers(0, Hh - patch_height + 1, num_patches)
+    xs = rng.integers(0, Ww - patch_width + 1, num_patches)
+    out = np.empty((num_patches, patch_height * patch_width * C), images.dtype)
+    for k in range(num_patches):
+        patch = images[ii[k], ys[k]:ys[k] + patch_height, xs[k]:xs[k] + patch_width]
+        out[k] = patch.transpose(2, 0, 1).reshape(-1)
+    return out

@@ -1,7 +1,8 @@
 """Evolutionary generation of new candidate states for a block of
-datapoints.
+datapoints, or for one (``evolve_states``).
 
-Counterpart: evo_tpu/variational/evolve.py:139-258 ``evolve_states_block``,
+Counterpart: evo_tpu/variational/evolve.py:53-258 (``evolve_states``,
+``evolve_states_block``),
 with the same seen-set bookkeeping: every generation yields exactly
 ``children_per_gen`` children per datapoint; a child that equals a state of
 K^(n), the permanent all-zero state (``allzero``) or any earlier child is
@@ -109,3 +110,23 @@ def evolve_states_block(
 
     return (torch.cat(out_states, dim=1), torch.cat(out_lpj, dim=1),
             torch.cat(out_new, dim=1), torch.cat(out_raw, dim=1), aux_list)
+
+
+def evolve_states(
+    ss_n: torch.Tensor,  # [S, H] int8 (or packed uint8 [S, ceil(H/8)]) — K^(n)
+    lpj_n: torch.Tensor,  # [S]
+    lpj_fn: Callable,  # states [C, H] like ss_n -> lpj [C]
+    cfg: EAConfig,
+    sparseness,
+    generator: Optional[torch.Generator] = None,
+    draws: Optional[Sequence] = None,
+):
+    """The EA of one datapoint: ``evolve_states_block`` on a batch of one.
+    Returns (children [T, H], child_lpj [T] with -inf at duplicates,
+    new_unique [T], child_lpj_raw [T]), T = cfg.n_new."""
+    def lpj_fn_block(states):
+        return lpj_fn(states[0])[None], None, None
+
+    children, child_lpj, new_unique, child_lpj_raw, _ = evolve_states_block(
+        ss_n[None], lpj_n[None], lpj_fn_block, cfg, sparseness, generator, draws=draws)
+    return children[0], child_lpj[0], new_unique[0], child_lpj_raw[0]

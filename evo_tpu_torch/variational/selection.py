@@ -1,6 +1,7 @@
 """Parent selection for the evolutionary E-step, batched over datapoints.
 
-Counterpart: evo_tpu/variational/selection.py:21-60.  Gumbel-top-k sampling
+Counterpart: evo_tpu/variational/selection.py:21-60.  ``fitparents`` and
+``randparents`` take the parents' rows out of the candidates.  Gumbel-top-k sampling
 without replacement, with the floored-lpj rule of ``fitparents_idx``.
 ``lax.top_k`` prefers lower indices on ties and ``torch.topk`` promises no
 order, so the top k are taken from a stable descending sort.
@@ -50,6 +51,23 @@ def randparents_idx(shape, k: int, generator=None, gumbel=None,
     if gumbel is None:
         gumbel = draw_gumbel(shape, generator, device, dtype)
     return stable_topk_idx(gumbel, k)
+
+
+def fitparents(candidates: torch.Tensor, n_parents: int, lpj: torch.Tensor,
+               generator=None, gumbel=None) -> torch.Tensor:
+    """[..., K, H] candidates -> [..., n_parents, H] drawn without
+    replacement with probability proportional to fitness (``fitparents_idx``)."""
+    idx = fitparents_idx(lpj, n_parents, generator, gumbel)
+    return torch.take_along_dim(candidates, idx[..., None], dim=-2)
+
+
+def randparents(candidates: torch.Tensor, n_parents: int, lpj=None, generator=None,
+                gumbel=None) -> torch.Tensor:
+    """[..., K, H] candidates -> [..., n_parents, H] drawn uniformly without
+    replacement; ``lpj`` is not read (the signature is ``fitparents``')."""
+    idx = randparents_idx(candidates.shape[:-1], n_parents, generator, gumbel,
+                          candidates.device)
+    return torch.take_along_dim(candidates, idx[..., None], dim=-2)
 
 
 def select_idx(selection: str, lpj: torch.Tensor, k: int, generator=None,

@@ -243,3 +243,39 @@ print(len(names))
     roots |= {node.module.split(".")[0] for node in ast.walk(tree)
               if isinstance(node, ast.ImportFrom) and node.module}
     assert "evo_tpu_torch" in roots and not roots & {"jax", "jaxlib", "evo_tpu"}, roots
+
+
+def test_apps_import_without_jax_h5py_or_matplotlib():
+    """Every evo_tpu_torch module, the trainer, the bars app and the
+    checkpoint among them, imports with jax, evo_tpu, h5py and matplotlib
+    all blocked (the card's machine need not have h5py or matplotlib), and
+    an AutoTable and a visualizer can be made before either is needed."""
+    code = r"""
+import importlib, pkgutil, sys, tempfile, os
+
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "evo_tpu", "h5py", "matplotlib"):
+            raise ImportError("blocked: " + name)
+        return None
+
+sys.meta_path.insert(0, Block())
+import evo_tpu_torch
+for m in pkgutil.walk_packages(evo_tpu_torch.__path__, "evo_tpu_torch."):
+    importlib.import_module(m.name)
+from evo_tpu_torch.apps import bars, training
+from evo_tpu_torch.apps.viz import BarsVisualizer
+from evo_tpu_torch.utils import checkpoint
+from evo_tpu_torch.utils.autotable import AutoTable
+d = tempfile.mkdtemp()
+AutoTable(os.path.join(d, "t.h5")).close()
+BarsVisualizer(1, d).finalize()
+bad = [m for m in sys.modules
+       if m.split(".")[0] in ("jax", "jaxlib", "evo_tpu", "h5py", "matplotlib")]
+assert not bad, bad
+print("ok")
+"""
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
