@@ -58,6 +58,34 @@ Phases, one line each with its seconds:
                S = 20) through EMTrainer: EBSC 40 epochs in chunks of 4, ES3C
                10 epochs; F finite and rising, printed against the exact
                likelihood L_gen, launch counts checked
+ 17. denoise_app  both models through apps/images.py's build and epoch
+               callback (the merge on the card) and EMTrainer, at the
+               denoising CLI's defaults on the synthetic 256 x 256 image
+               (rescale 1.0, sigma = 25; N = 63,504, D = 25, H = 32): ES3C 1
+               warm-up and 4 epochs, EBSC 2, a merge every epoch; ms per
+               epoch, the merge's ms and PSNR, which must beat the noisy
+               image's; launch counts checked
+ 18. inpaint_app  ES3C inpainting through the same code on phase 10's image
+               and mask: 1 warm-up and 3 epochs, the reconstruction and merge
+               on the card every epoch, the PSNR on the missing pixels beside
+               phase 10's; the compact read-back of the last y_rec equal to
+               the full gather bit for bit, and the host merge's PSNR within
+               1e-3 dB of the card's
+ 19. feature_app  BSC and SSSC through apps/feature_learning.py's build on
+               the synthetic patch file (N = 2000, D = 64, H = 100, S = 15,
+               5 x 2): 5 epochs each, F finite and rising
+ 20. wide      the widths past the kernels' envelope, on the wide path: ES3C
+               at H = 256 on phase 19's patches (no ES3C kernel launched),
+               ES3C inpainting at H = 100 of a 128 x 128 synthetic image with
+               10% missing (N = 15,376; no masked kernel launched), EBSC at
+               H = 1280 (N = 4096, D = 256, S = 32; no bsc_lpj launch, one
+               bsc_suffstat a block), with ms per epoch and peak memory, and
+               2 epochs at the first width past each limit (ES3C inpainting
+               at H = 65, EBSC at H = 1025); ES3C
+               at H = 128 (kernels) and 129 (wide) on phase 7's data, for
+               what the wide path costs, each with one more epoch under
+               torch.profiler; the wide ES3C lpj on the card
+               against the same function on the CPU at H = 256 and H = 100
 The kernels phase also holds the ES3C kernels, the masked ones (incomplete
 data) included, against their plain versions at those paths' shapes, and
 the packed-input EBSC kernels against their plain versions and, bit for
@@ -106,7 +134,7 @@ import numpy as np
 import torch
 
 from evo_tpu_torch import BSC, SSSC, SSSCParams, init_states, make_data
-from evo_tpu_torch.apps import bars
+from evo_tpu_torch.apps import bars, feature_learning, images
 from evo_tpu_torch.apps.common import chunking_kwargs
 from evo_tpu_torch.apps.training import EMTrainer
 from evo_tpu_torch.models.base import block_gram, em_steps, epoch_generator
@@ -128,7 +156,8 @@ from evo_tpu_torch.ops.sssc_suffstat import (
     sssc_suffstat_masked,
     sssc_suffstat_plain,
 )
-from evo_tpu_torch.prepost import MultiDimOverlappingPatches
+from evo_tpu_torch.models.sssc import sssc_lpj_wide
+from evo_tpu_torch.prepost import MultiDimOverlappingPatches, psnr
 from evo_tpu_torch.prepost.device_merge import DeviceMerger
 from evo_tpu_torch.utils.datalog import DataLog, StoreToTxt
 
@@ -162,6 +191,8 @@ INPAINT_IMAGE, INPAINT_PATCH, INPAINT_MISSING = (321, 481, 3), 5, 0.10
 INPAINT_H, INPAINT_S, INPAINT_PARENTS, INPAINT_CHILDREN = 32, 20, 10, 1
 INPAINT_N = (INPAINT_IMAGE[0] - INPAINT_PATCH + 1) * (INPAINT_IMAGE[1] - INPAINT_PATCH + 1)
 INPAINT_D = INPAINT_PATCH**2 * INPAINT_IMAGE[2]
+# the wide phase's EBSC: (H, N), past bsc_lpj's H <= 1024
+WIDE_BSC = (1280, 4096)
 
 
 def _watchdog():
@@ -1335,7 +1366,8 @@ def inpaint_setup(kind, inp):
 def merge_and_psnr(inp, y_rec):
     """Mean and median merge of the reconstruction on the card with the DC
     added back, their PSNR over the whole image and over the missing
-    pixels, and the merge's time."""
+    pixels, and the merge's time.  Returns {merger: (PSNR, PSNR on the
+    missing pixels)}."""
     clean, corrupted, _, dc, ovp = inp
     dm = DeviceMerger(ovp, clean, data_range=255.0, device=DEVICE)
     dc_t = torch.as_tensor(dc, dtype=torch.float32, device=DEVICE)
@@ -1353,6 +1385,7 @@ def merge_and_psnr(inp, y_rec):
     say(f"merge on the card: {ms:.2f} ms; PSNR mean merge {res['mean'][0]:.3f} dB (missing "
         f"pixels {res['mean'][1]:.3f} dB), median merge {res['median'][0]:.3f} dB (missing "
         f"pixels {res['median'][1]:.3f} dB)")
+    return res
 
 
 def sssc_setup(conf):
@@ -1699,6 +1732,258 @@ def bars_app(launches):
             raise AssertionError(f"{args.algo}: F not finite or not rising: {F}")
 
 
+def add_counts(total, counts):
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + v
+
+
+def app_train(b, launches, expect, n_epochs, outdir, dlog, epoch_callback=None,
+              reconstruct_at=None, **trainer_kw):
+    """An app's pieces (``build``'s dict) trained by EMTrainer for
+    ``n_epochs`` with ``dlog`` and host tracepoints, the launch counts set
+    to 0 just before and checked just after (``expect`` per epoch).
+    Returns (F per epoch, ms per epoch, the launch counts, final params)."""
+    tr = EMTrainer(b["model"], b["cfg"], b["params"], b["estate"], b["data"], dlog, outdir,
+                   tracefile="trace-%04d.txt", **trainer_kw)
+    launches.reset()
+    params, _, _ = tr.run(n_epochs, reconstruct_at=reconstruct_at,
+                          epoch_callback=epoch_callback)
+    counts = launches.expect(**{k: v * n_epochs for k, v in expect.items()})
+    dlog.close()
+    F = logged_F(outdir)
+    if len(F) != n_epochs or not all(np.isfinite(F)):
+        raise AssertionError(f"F not finite: {F}")
+    return F, [round(1e3 * x, 1) for x in trace_spans(outdir, "em_step")], counts, params
+
+
+def timed_callback(callback, last, merges, keep=None):
+    """``callback`` with its wall time (the merge, its read-back and the
+    log) and the PSNR it left in ``last`` appended to ``merges``; with
+    ``keep`` the epoch's y_rec is kept there."""
+    def run(**kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        callback(**kw)
+        torch.cuda.synchronize()
+        merges.append((round(1e3 * (time.perf_counter() - t), 1), last.get("psnr")))
+        if keep is not None and kw.get("y_rec") is not None:
+            keep["y_rec"] = kw["y_rec"].clone()
+    return run
+
+
+def denoise_app(launches):
+    """Both models through apps/images.py at the denoising CLI's defaults on
+    the synthetic 256 x 256 image (what the CLI reads at --rescale 1.0
+    without ./img/house.png), a merge on the card every epoch; the last
+    merge's PSNR must beat the noisy image's."""
+    dev = torch.device(DEVICE)
+    clean = images.synthetic_image(256)
+    total = {}
+    for algo, n, expect in (("es3c", 5, dict(sssc_lpj=2, sssc_suffstat=1)),
+                            ("ebsc", 2, dict(lpj=2, suffstat=1))):
+        args = images.get_args(["denoising", algo, "--rescale", "1.0", "--no_epochs", str(n),
+                                "--merge_every", "1"])
+        noisy = images.add_noise(clean, args)
+        t = time.perf_counter()
+        b = images.build(args, clean, noisy, None, dev)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t
+        with tempfile.TemporaryDirectory() as tmp:
+            dlog = metrics_log(tmp)
+            callback, last = images.make_epoch_callback(args, b, clean, dlog, dev)
+            if last["route"] != "device":
+                raise AssertionError(f"merge route {last['route']} on the card")
+            merges = []
+            F, ms, counts, _ = app_train(
+                b, launches, expect, n, tmp, dlog, timed_callback(callback, last, merges),
+                b["reconstruct_at"], seed=args.seed + 1,
+                **chunking_kwargs(args, theta_append=False, auto_overwrite=False))
+        add_counts(total, counts)
+        p_noisy = psnr(clean, noisy, 255.0)
+        say(f"{algo} N={b['N']} D={b['D']} H={args.H} S={args.Ksize}: set-up {setup_s:.1f} s; "
+            f"F per epoch {[round(f, 4) for f in F]}; ms per epoch {ms} (first is warm-up) "
+            f"on {CARD['smi']}")
+        say(f"  merge on the card and its read-back, ms per epoch {[m for m, _ in merges]}; "
+            f"PSNR per merge {[round(p, 3) for _, p in merges]} dB; noisy image {p_noisy:.3f} dB")
+        if not merges[-1][1] > p_noisy:
+            raise AssertionError(f"{algo}: PSNR {merges[-1][1]} does not beat the noisy image's")
+    return total
+
+
+def inpaint_app(launches, inp, inpaint_res):
+    """ES3C inpainting through apps/images.py on sssc_inpaint's image and
+    mask (the app's patches and centring must be inpaint_data's): 1
+    warm-up and 3 epochs with the merge on the card every epoch; the
+    compact read-back of the last y_rec equals the full gather bit for bit
+    and the host merge's PSNR is within 1e-3 dB of the card's."""
+    dev = torch.device(DEVICE)
+    clean, corrupted, Y_ref, _, _ = inp
+    n = 4
+    args = images.get_args(["inpainting", "es3c", "--no_epochs", str(n)])
+    b = images.build(args, clean, corrupted, images.observed(corrupted, args), dev)
+    if not np.array_equal(b["Y"], Y_ref, equal_nan=True):
+        raise AssertionError("the app's patches differ from inpaint_data's")
+    keep, merges = {}, []
+    with tempfile.TemporaryDirectory() as tmp:
+        dlog = metrics_log(tmp)
+        callback, last = images.make_epoch_callback(args, b, clean, dlog, dev)
+        F, ms, counts, _ = app_train(
+            b, launches, dict(sssc_lpj_masked=2, sssc_suffstat_masked=1), n, tmp, dlog,
+            timed_callback(callback, last, merges, keep), b["reconstruct_at"],
+            seed=args.seed + 1, **chunking_kwargs(args, theta_append=False,
+                                                  auto_overwrite=False))
+    y_rec = keep["y_rec"]
+    read = images.compact_reader(b, dev)
+    t = time.perf_counter()
+    full = images.full_readback(b, y_rec)
+    full_s = time.perf_counter() - t
+    t = time.perf_counter()
+    compact = read(y_rec)
+    compact_s = time.perf_counter() - t
+    if not np.array_equal(full, compact):
+        raise AssertionError("the compact read-back differs from the full gather")
+    t = time.perf_counter()
+    host = images.host_merge(b, clean, full)
+    host_s = time.perf_counter() - t
+    out = DeviceMerger(b["ovp"], clean, data_range=255.0, device=DEVICE)(
+        y_rec, torch.as_tensor(b["dc"], dtype=torch.float32, device=DEVICE))
+    miss = np.isnan(corrupted)
+    rec = out["mean"].cpu().numpy().astype(np.float64)
+    p_miss = float(10 * np.log10(255.0**2 / np.mean((clean - rec)[miss] ** 2)))
+    say(f"es3c N={b['N']} D={b['D']} H={args.H} S={args.Ksize}: F per epoch "
+        f"{[round(f, 4) for f in F]}; ms per epoch {ms} (first is warm-up) on {CARD['smi']}")
+    say(f"  merge on the card and its read-back, ms per epoch {[m for m, _ in merges]}; PSNR "
+        f"per merge {[round(p, 3) for _, p in merges]} dB; on the missing pixels {p_miss:.3f} "
+        f"dB (sssc_inpaint's {inpaint_res['mean'][1]:.3f} dB)")
+    say(f"  last y_rec: full read-back {full_s:.3f} s, compact {compact_s:.3f} s (equal bit "
+        f"for bit; the compact reader's set-up not counted); host merge {host_s:.2f} s")
+    for name in ("mean", "median"):
+        card = float(out[f"psnr_{name}"])
+        say(f"  {name} merge PSNR: card {card:.4f} dB, host {host[name][1]:.4f} dB")
+        if not abs(card - host[name][1]) <= 1e-3:
+            raise AssertionError(f"the {name} merge's PSNR differs between card and host")
+    return counts
+
+
+def feature_app(launches):
+    """BSC and SSSC through apps/feature_learning.py's build on the
+    synthetic patch file (the CLI's fallback without the reference's patch
+    file), at the CLI's defaults, 5 epochs each: F finite and rising.
+    Returns (launch counts, the patches)."""
+    dev = torch.device(DEVICE)
+    total = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = feature_learning.synthetic_patchfile(os.path.join(tmp, "patches.npz"))
+        Y = feature_learning.load_patches(path)[0]
+        for model, expect in (("bsc", dict(lpj=2, suffstat=1)),
+                              ("sssc", dict(sssc_lpj=2, sssc_suffstat=1))):
+            args = feature_learning.get_args(["--model", model, "--no_epochs", "5",
+                                              "--data_file", path])
+            b = feature_learning.build(args, Y, dev)
+            out = os.path.join(tmp, model)
+            F, ms, counts, _ = app_train(b, launches, expect, args.no_epochs, out,
+                                         metrics_log(out), seed=args.seed + 1,
+                                         **chunking_kwargs(args))
+            add_counts(total, counts)
+            say(f"{model} N={Y.shape[0]} D={Y.shape[1]} H={args.H} S={args.Ksize}: F per epoch "
+                f"{[round(f, 4) for f in F]}; ms per epoch {ms} on {CARD['smi']}")
+            if not F[-1] > F[0]:
+                raise AssertionError(f"{model}: F did not rise: {F}")
+    return total, Y
+
+
+def app_setup(build, args, *inputs):
+    """A set-up function for ``drive`` from an app's ``build``."""
+    def setup(device):
+        b = build(args, *inputs, torch.device(device))
+        return b["model"], b["data"], b["cfg"], b["estate"], b["params"]
+    return setup
+
+
+def wide_bsc_setup(Hw, Nw):
+    """A set-up function for ``drive``: EBSC at H = Hw past bsc_lpj's 1024,
+    N = Nw in one block, D = 256, S = 32, 10 parents x 1 child, data made
+    as primary_setup makes it."""
+
+    def setup(device):
+        rng = np.random.default_rng(0)
+        W_gen = rng.standard_normal((D, Hw)).astype(np.float32)
+        s_gen = rng.random((Nw, Hw)) <= 2.0 / Hw
+        Y = s_gen.astype(np.float32) @ W_gen.T + rng.standard_normal((Nw, D)).astype(np.float32)
+        model = BSC(D=D, H=Hw, device=device)
+        data = make_data(Y, n_blocks=1, device=device)
+        cfg, estate = init_states(N=Nw, S=32, H=Hw, no_parents=10, no_children=1,
+                                  no_generations=1, n_blocks=1, seed=0, device=device)
+        return model, data, cfg, estate, model.standard_init(data, seed=0, y_host=Y)
+
+    return setup
+
+
+def wide_lpj_check(setup, run, label, rows=1024):
+    """The wide ES3C lpj of the run's last states (the first ``rows``
+    datapoints of block 0) on the card against the same function on the
+    CPU: the same bad flags, lpj within 1e-3 relative."""
+    model, data = setup(DEVICE)[:2]
+    p = model.check_params(run["params"])
+    pre = model._precompute(p, data)
+    G, Wty, y2 = block_gram(p.W, data.y[0, :rows], data.x_infr[0, :rows], data.incomplete)
+    args = (run["estate"].ss[0, :rows].contiguous(), Wty, y2, G, p.Psi, p.mus,
+            pre["pil_bar"], pre["sigma2_inv"])
+    lpj, bad = sssc_lpj_wide(*args)
+    lpj_c, bad_c = sssc_lpj_wide(*(a.cpu() for a in args))
+    ms = cuda_ms(lambda: sssc_lpj_wide(*args), reps=3, warm=1)
+    lpj, bad = lpj.cpu(), bad.cpu()
+    if not torch.equal(bad, bad_c):
+        raise AssertionError(f"{label}: the wide lpj's bad flags differ between card and CPU")
+    ok = bad == 0
+    err = ((lpj[ok] - lpj_c[ok]).abs() / lpj_c[ok].abs().clamp(min=1e-30)).max().item()
+    say(f"{label}: wide lpj of {args[0].shape[0]} x {args[0].shape[1]} states, card against "
+        f"CPU: max relative error {err:.3g}, {int((~ok).sum())} flagged; {ms:.2f} ms a call")
+    if not err <= 1e-3:
+        raise AssertionError(f"{label}: the wide lpj differs between card and CPU")
+
+
+def wide(launches, Y_fl):
+    """The widths past the kernels' envelope, each on the wide path with
+    the kernels it must not launch checked, ms per epoch and peak memory;
+    then ES3C at H = 128 (kernels) and 129 (wide) on sssc_fl's data."""
+    total = {}
+    inp_args = images.get_args(["inpainting", "es3c", "-H", "100", "--no_epochs", "3"])
+    clean = images.synthetic_image(128)
+    corrupted = images.remove_values(clean, inp_args)
+    edge_args = images.get_args(["inpainting", "es3c", "-H", "65", "--no_epochs", "2"])
+    edge_clean = images.synthetic_image(48)
+    edge_corrupted = images.remove_values(edge_clean, edge_args)
+    runs = (
+        ("es3c H=256 N=2000 D=64", app_setup(feature_learning.build, feature_learning.get_args(
+            ["--model", "sssc", "-H", "256"]), Y_fl), {}, False, 2),
+        ("es3c inpainting H=100 N=15376 D=25", app_setup(
+            images.build, inp_args, clean, corrupted, images.observed(corrupted, inp_args)),
+         {}, True, 2),
+        ("ebsc H=1280 N=4096 D=256", wide_bsc_setup(*WIDE_BSC), dict(suffstat=1), False, 1),
+        # the first widths past each limit: ES3C on incomplete data, EBSC
+        ("es3c inpainting H=65 N=1936 D=25", app_setup(
+            images.build, edge_args, edge_clean, edge_corrupted,
+            images.observed(edge_corrupted, edge_args)), {}, True, 1),
+        ("ebsc H=1025 N=1024 D=256", wide_bsc_setup(1025, 1024), dict(suffstat=1), False, 1),
+    )
+    for label, setup, expect, rec, timed in runs:
+        torch.cuda.reset_peak_memory_stats()
+        run = drive(setup, launches, expect, do_reconstruction=rec, timed_epochs=timed,
+                    rising=False)
+        add_counts(total, run["counts"])
+        say(f"{label}: peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        if label.startswith(("es3c H=256", "es3c inpainting H=100")):
+            wide_lpj_check(setup, run, label)
+        del run
+    for Hx, expect in ((128, dict(sssc_lpj=2, sssc_suffstat=1)), (129, {})):
+        conf = SSSC_FL[:3] + (Hx,) + SSSC_FL[4:]
+        say(f"es3c at H={Hx} on sssc_fl's data ({'kernels' if expect else 'wide path'}):")
+        add_counts(total, drive(sssc_setup(conf), launches, expect, timed_epochs=2,
+                                profile=True, rising=False)["counts"])
+    return total
+
+
 class Launches:
     """Reads and resets the kernel wrappers' launch counters (the packed
     modes of the EBSC kernels count apart from their int8 modes)."""
@@ -1787,7 +2072,7 @@ def main():
                     dict(sssc_lpj_masked=2, sssc_suffstat_masked=1), profile=True,
                     do_reconstruction=True, rising=False)
         inpaint = run["counts"]
-        merge_and_psnr(inp, run["y_rec"])
+        inpaint_res = merge_and_psnr(inp, run["y_rec"])
         del run
     with Phase("bsc_inpaint"):
         bsc_inp = drive(inpaint_setup("bsc", inp), launches, dict(suffstat=1),
@@ -1809,38 +2094,51 @@ def main():
         trainer(launches)
     with Phase("bars_app"):
         bars_app(launches)
+    apps = {}
+    with Phase("denoise_app"):
+        add_counts(apps, denoise_app(launches))
+    with Phase("inpaint_app"):
+        add_counts(apps, inpaint_app(launches, inp, inpaint_res))
+    with Phase("feature_app"):
+        counts_fl, Y_fl = feature_app(launches)
+        add_counts(apps, counts_fl)
+    with Phase("wide"):
+        add_counts(apps, wide(launches, Y_fl))
 
     kernels = [
         dict(name="bsc_lpj", route="cuda", source="evo_tpu_torch/csrc/bsc_lpj.cu",
-             replaces="evo_tpu/ops/pallas_lpj.py:97", launches=counts["lpj"],
+             replaces="evo_tpu/ops/pallas_lpj.py:97", launches=counts["lpj"] + apps["lpj"],
              library_ms=None, **rows["bsc_lpj"]),
         dict(name="bsc_lpj_packed", route="cuda", source="evo_tpu_torch/csrc/bsc_lpj.cu",
              replaces="evo_tpu/ops/pallas_lpj.py:47", launches=packed_counts["lpj_packed"],
              library_ms=None, **rows["bsc_lpj_packed"]),
-        # launches: the EBSC main path and bsc_inpaint together
+        # launches: the EBSC main path, bsc_inpaint and the app phases together
         dict(name="bsc_suffstat", route="cuda", source="evo_tpu_torch/csrc/bsc_suffstat.cu",
              replaces="evo_tpu/ops/pallas_suffstat.py:60",
-             launches=counts["suffstat"] + bsc_inp["suffstat"], library_ms=None,
-             **rows["bsc_suffstat"]),
+             launches=counts["suffstat"] + bsc_inp["suffstat"] + apps["suffstat"],
+             library_ms=None, **rows["bsc_suffstat"]),
         dict(name="bsc_suffstat_packed", route="cuda",
              source="evo_tpu_torch/csrc/bsc_suffstat.cu",
              replaces="evo_tpu/ops/pallas_suffstat.py:30",
              launches=packed_counts["suffstat_packed"], library_ms=None,
              **rows["bsc_suffstat_packed"]),
-        # launches: the two complete-data ES3C paths' runs together
+        # launches: the complete-data ES3C paths' runs and the app phases together
         dict(name="sssc_lpj", route="cuda", source="evo_tpu_torch/csrc/sssc_lpj.cu",
              replaces="evo_tpu/ops/pallas_sssc.py:676",
-             launches=fl["sssc_lpj"] + prim["sssc_lpj"], library_ms=None, **rows["sssc_lpj"]),
+             launches=fl["sssc_lpj"] + prim["sssc_lpj"] + apps["sssc_lpj"], library_ms=None,
+             **rows["sssc_lpj"]),
         dict(name="sssc_suffstat", route="cuda", source="evo_tpu_torch/csrc/sssc_suffstat.cu",
              replaces="evo_tpu/ops/pallas_sssc.py:1015",
-             launches=fl["sssc_suffstat"] + prim["sssc_suffstat"], library_ms=None,
-             **rows["sssc_suffstat"]),
+             launches=fl["sssc_suffstat"] + prim["sssc_suffstat"] + apps["sssc_suffstat"],
+             library_ms=None, **rows["sssc_suffstat"]),
         dict(name="sssc_lpj_masked", route="cuda", source="evo_tpu_torch/csrc/sssc_lpj_masked.cu",
-             replaces="evo_tpu/ops/pallas_sssc.py:606", launches=inpaint["sssc_lpj_masked"],
+             replaces="evo_tpu/ops/pallas_sssc.py:606",
+             launches=inpaint["sssc_lpj_masked"] + apps["sssc_lpj_masked"],
              library_ms=None, **rows["sssc_lpj_masked"]),
         dict(name="sssc_suffstat_masked", route="cuda",
              source="evo_tpu_torch/csrc/sssc_suffstat_masked.cu",
-             replaces="evo_tpu/ops/pallas_sssc.py:939", launches=inpaint["sssc_suffstat_masked"],
+             replaces="evo_tpu/ops/pallas_sssc.py:939",
+             launches=inpaint["sssc_suffstat_masked"] + apps["sssc_suffstat_masked"],
              library_ms=None, **rows["sssc_suffstat_masked"]),
     ]
     say(f"total {time.perf_counter() - t_start:.1f} s")

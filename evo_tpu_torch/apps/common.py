@@ -153,6 +153,37 @@ def image_experiment_parser():
     return p
 
 
+def awgn_parser():
+    """The image-denoising app's input flags (examples/image-denoising/main.py)."""
+    p = argparse.ArgumentParser(add_help=False)
+    p.add_argument("--clean_image", type=str, default="./img/house.png",
+                   help="Full path to clean image (synthetic fallback if missing)")
+    p.add_argument("--rescale", type=float, default=0.4,
+                   help="Rescale factor for the clean image")
+    p.add_argument("--noise_level", type=float, default=25,
+                   help="Std of the additive white Gaussian noise")
+    return p
+
+
+def mcar_parser():
+    """The image-inpainting app's input flags (examples/image-inpainting/main.py)."""
+    p = argparse.ArgumentParser(add_help=False)
+    p.add_argument("--clean_image", type=str, default="./img/castle.jpg",
+                   help="Full path to clean image (synthetic fallback if missing)")
+    p.add_argument("--percentage_missing", type=float, default=None,
+                   help="Fraction of pixels set to missing (MCAR)")
+    p.add_argument("--percentage", type=int, default=10,
+                   help="Percentage of missing pixels (the reference's flag; "
+                        "--percentage_missing takes precedence)")
+    p.add_argument("--rescale", type=float, default=0.1,
+                   help="Rescale factor for the clean image")
+    p.add_argument("--no_compact_readback", dest="compact_readback",
+                   action="store_false", default=True,
+                   help="Read back the full [N, D] reconstruction at merges instead "
+                        "of only the missing values (the same result bit for bit)")
+    return p
+
+
 def viz_parser():
     p = argparse.ArgumentParser(add_help=False)
     p.add_argument("--viz_every", type=int, default=1,

@@ -110,15 +110,17 @@ class EMTrainer:
             print(f"\tguard_psi_renorm = {renorm:.3f}")
 
     def _warn_bucket_overflow(self, n_reset_nan: int):
-        """At 64 < H <= 128 the SSSC kernels flag states with more than
-        ``overflow_cap(H)`` (16) active units as bad instead of evaluating
-        them, and their lpj is reset: exact under sparse priors, lossy if
-        pies drift dense.  Nonzero nan-reset counters for 3 epochs in a row
-        are the symptom; warn once."""
+        """At 64 < H <= 128 on complete data the SSSC kernels flag states
+        with more than ``overflow_cap(H)`` (16) active units as bad instead
+        of evaluating them, and their lpj is reset: exact under sparse
+        priors, lossy if pies drift dense.  Nonzero nan-reset counters for 3
+        epochs in a row are the symptom; warn once.  The wide path (see
+        models/sssc.py) has no cap."""
         if n_reset_nan == 0:
             self._overflow_nan_streak = 0
             return
-        if self._overflow_warned or not isinstance(self.model, SSSC) or self.model.H <= 64:
+        if (self._overflow_warned or not isinstance(self.model, SSSC) or self.model.H <= 64
+                or self.model.wide(self.data)):
             return
         self._overflow_nan_streak += 1
         if self._overflow_nan_streak >= 3:

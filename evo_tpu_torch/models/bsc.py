@@ -19,7 +19,8 @@ through the whole epoch, at every H (evo_tpu needs H % 32 == 0 for this on
 the TPU and otherwise unpacks each block; the results are the same): both
 kernels read the packed states, the EA keys them from their bytes and
 unpacks only the parents, the merge moves packed rows, and only the
-reconstruction and the incomplete-data lpj unpack what they read.  The
+reconstruction and ``lpj_gram`` (incomplete data, wide models) unpack what
+they read.  The
 permanent states (``allzero``, ``background``) and the merges other than
 the sorted unification merge (``swap_merge``, ``unification=False``) run
 as in evo_tpu.
@@ -27,9 +28,19 @@ as in evo_tpu.
 Incomplete data (NaN entries in ``make_data``) need
 ``do_reconstruction=True``, as in evo_tpu.  Their lpj runs under the
 per-datapoint Gram G_n = W^T diag(m_n) W and is plain PyTorch on every
-device (``lpj_masked_gram``): evo_tpu has no TPU kernel for it either
+device (``lpj_gram``): evo_tpu has no TPU kernel for it either
 (``pallas_lpj_applicable`` is False for incomplete data), so nothing falls
 back here.  ``bsc_suffstat`` does not read the mask and stays the kernel.
+
+Widths: the ``bsc_lpj`` kernel covers H <= ``ops.bsc_lpj.MAX_H`` (1024).
+Wider models take evo_tpu's XLA form of the lpj, ``BSC._lpj_one``
+(evo_tpu/models/bsc.py:222-229), which is ``lpj_gram`` under the shared
+G, on every device; the EA then keys the states itself, as on incomplete
+data, and packed states are unpacked for this lpj only.  The path is chosen
+from H alone (``BSC.wide``, the limit read when the model is called),
+before anything is launched; ``bsc_suffstat`` (H <= 65,535) stays the
+kernel.
+
 The reconstruction y_rec = where(x, y, sum_s r W s) is returned blocked
 [nb, B, D]; on incomplete data it feeds the W update and the sigma residual.
 """
@@ -52,6 +63,7 @@ from evo_tpu_torch.models.base import (
     check_single_process,
     host_data,
 )
+from evo_tpu_torch.ops import bsc_lpj as bsc_lpj_ops
 from evo_tpu_torch.ops.bitpack import unpack_bits_lane
 from evo_tpu_torch.ops.bsc_lpj import bsc_lpj
 from evo_tpu_torch.ops.bsc_suffstat import bsc_suffstat
@@ -79,12 +91,12 @@ class BSCParams:
     pies: torch.Tensor  # [H], per-unit pi_h, diagnostic only
 
 
-def lpj_masked_gram(ss, Wty, y2, G, pre1, pil_bar):
+def lpj_gram(ss, Wty, y2, G, pre1, pil_bar):
     """lpj [B, K] of states ss [B, K, H] under per-datapoint Grams G
-    [B, H, H] (incomplete data): pre1 (y2 - 2 s.Wty + s^T G_n s) + pil_bar
-    |s|, the per-datapoint form of evo_tpu's ``BSC._lpj_one``
-    (evo_tpu/models/bsc.py:222-229).  Plain PyTorch on every device, as in
-    evo_tpu, which has no TPU kernel for incomplete data."""
+    [B, H, H] (incomplete data) or the shared Gram G [H, H] (H above the
+    kernel's limit): pre1 (y2 - 2 s.Wty + s^T G s) + pil_bar |s|, evo_tpu's
+    ``BSC._lpj_one`` (evo_tpu/models/bsc.py:222-229).  Plain PyTorch on
+    every device, as in evo_tpu, which runs both cases on XLA."""
     sf = ss.to(Wty.dtype)
     sGs = ((sf @ G) * sf).sum(dim=-1)
     sWty = (sf @ Wty[:, :, None])[..., 0]
@@ -102,6 +114,11 @@ class BSC:
 
     def __post_init__(self):
         object.__setattr__(self, "device", resolve_device(self.device))
+
+    def wide(self) -> bool:
+        """Whether H is above the ``bsc_lpj`` kernel's limit, so that the
+        lpj takes ``lpj_gram`` on complete data too."""
+        return self.H > bsc_lpj_ops.MAX_H
 
     # ------------------------------------------------------------------ init
 
@@ -190,18 +207,19 @@ class BSC:
                      cfg: EAConfig):
         """Evolutionary E-step of one block [B, ...]: lpj of the current
         K^(n), children by ``evolve_states_block``, the merge ``cfg`` asks
-        for.  A per-datapoint Gram G_b [B, H, H] (incomplete data) takes
-        ``lpj_masked_gram``; the EA computes its own dedup keys then and on
-        packed states (the kernel's keys are those of unpacked states).
-        Returns (ss2, lpj2, n_uni [B], n_sub [B], reset counts [3])."""
+        for.  A per-datapoint Gram G_b [B, H, H] (incomplete data) and a
+        wide model take ``lpj_gram``; the EA computes its own dedup keys
+        then and on packed states (the kernel's keys are those of unpacked
+        states).  Returns (ss2, lpj2, n_uni [B], n_sub [B], reset counts [3])."""
         args = (Wty_b, y2_b, G_b, pre["pre1"], pre["pil_bar"])
         packed = cfg.packed_states
+        gram_form = G_b.dim() == 3 or self.wide()
 
         def lpj_block(states):
-            if G_b.dim() == 3:
+            if gram_form:
                 if packed:
                     states = unpack_bits_lane(states, self.H).to(torch.int8)
-                lpj, keys = lpj_masked_gram(states, *args), None
+                lpj, keys = lpj_gram(states, *args), None
             elif cfg.exact or packed:
                 lpj, keys = bsc_lpj(states, *args), None
             else:
@@ -353,7 +371,7 @@ class BSC:
             y_b = data.y[i]
             G_b, Wty_b, y2_b = block_gram(params.W, y_b, data.x_infr[i], data.incomplete)
             states = sm.expand(y_b.shape[0], -1, -1).contiguous()
-            lpj_fn = lpj_masked_gram if data.incomplete else bsc_lpj
+            lpj_fn = lpj_gram if data.incomplete or self.wide() else bsc_lpj
             lpj, _ = reset_lpj(lpj_fn(states, Wty_b, y2_b, G_b, pre["pre1"], pre["pil_bar"]))
             Fsum += (shifted_logsumexp(lpj) * data.row_valid[i].to(lpj.dtype)).sum()
         return pre["ljc"] + Fsum / pre["N"]

@@ -30,9 +30,18 @@ which routes packed ES3C to XLA; the port runs its kernels on the unpacked
 block.  The permanent states (``allzero``, ``background``) and the merges
 ``swap_merge`` and ``unification=False`` run as in evo_tpu.
 
-Envelope: H <= 128 on complete data and H <= 64 on incomplete data (the
-kernels' envelope; evo_tpu runs wider models on its XLA path).  Wider
-models and multi-process initialization raise NotImplementedError.
+Widths: the kernels cover H <= 128 on complete data and H <= 64 on
+incomplete data (``ops.sssc_lpj.MAX_H``, ``MASKED_MAX_H``).  Wider models
+take the wide path, the counterpart of evo_tpu's XLA path
+(``SSSC._state_solve``, ``_lpj_states`` and the re-solve of the merged set,
+evo_tpu/models/sssc.py:266-329, 509-539): plain PyTorch at model level,
+``sssc_lpj_wide`` for the lpj and ``sssc_suffstat_wide`` for the
+statistics, which solve each state's |s| x |s| system by a batched LU
+factorization (see ``wide_solves``).  The path is chosen from H
+and ``data.incomplete`` alone (``SSSC.wide``), before anything is
+launched, the same way on every device, as evo_tpu's
+``pallas_sssc_applicable`` chooses; the limits are read when the model is
+called.  Multi-process initialization raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -53,6 +62,7 @@ from evo_tpu_torch.models.base import (
     check_single_process,
     host_data,
 )
+from evo_tpu_torch.ops import sssc_lpj as sssc_lpj_ops
 from evo_tpu_torch.ops.bitpack import pack_bits_lane, unpack_bits_lane
 from evo_tpu_torch.ops.linalg import equilibrated_pd_inverse
 from evo_tpu_torch.ops.numerics import (
@@ -61,8 +71,8 @@ from evo_tpu_torch.ops.numerics import (
     reset_lpj,
     shifted_logsumexp,
 )
-from evo_tpu_torch.ops.sssc_lpj import MASKED_MAX_H, MAX_H, sssc_lpj
-from evo_tpu_torch.ops.sssc_suffstat import sssc_suffstat
+from evo_tpu_torch.ops.sssc_lpj import active_groups, gather_sub, gram_sub, sssc_lpj
+from evo_tpu_torch.ops.sssc_suffstat import moments, sssc_suffstat
 from evo_tpu_torch.variational.config import EAConfig
 from evo_tpu_torch.variational.evolve import evolve_states_block
 from evo_tpu_torch.variational.state_init import EState, full_state_matrix
@@ -72,6 +82,106 @@ PARAM_TOL = 1e-5  # reference noise_policy bounds (sssc.py:40,51-58)
 EPS_PIES = 5e-5
 EPS_PSI = 1e-5
 EPS_SIGMA2 = 1e-5
+WIDE_CHUNK_BYTES = 256 << 20  # the n x n temporaries of a chunk of the wide path's solves
+
+
+def wide_solves(ss, Wty, G, Psi, mus, s2inv):
+    """The slab solves of states ss [B, K, H] on the wide path: evo_tpu's
+    ``SSSC._state_solve`` (evo_tpu/models/sssc.py:266-281), each state
+    solved on its active units A (ascending) instead of identity-padded to
+    H x H, which is the same math.  With a = mus_A and
+    u = Wty[b]_A - G_AA a,
+
+        Pinv = Psi_AA^-1,   M = s2inv G_AA + Pinv,   lam_u = M^-1 u,
+        logdet = log|det M| + log|det Psi_AA|,
+
+    by batched LU factorizations with partial pivoting, log|det| the sum of
+    log|U_ii|: the sign is ignored, as evo_tpu's Schur recursion ignores it,
+    so an indefinite Psi_AA gives finite values as there.  G is the shared
+    Gram [H, H] or the per-datapoint one [B, H, H].  The states are grouped
+    by |s| (the empty state has nothing to solve) and each group taken in
+    chunks of at most WIDE_CHUNK_BYTES of n x n temporaries (about 64 n^2
+    bytes a state, the gathers' int64 indices included).  A state is
+    ``bad`` where Pinv is not finite (evo_tpu's rule) or either factor is
+    singular.  Yields a dict per chunk: rows (into the flat [B K] states),
+    b, A, a, wty (Wty[b]_A), u, lam_u, logdet, bad and the factors of M
+    (LU_M, piv_M); entries of bad states are garbage."""
+    B, K, H = ss.shape
+    b_of = torch.arange(B * K, device=ss.device) // K
+    for n, rows_n, A_n in active_groups(ss.reshape(B * K, H)):
+        step = max(1, WIDE_CHUNK_BYTES // (64 * n * n))
+        for c in range(0, rows_n.numel(), step):
+            rows, A = rows_n[c:c + step], A_n[c:c + step]
+            b = b_of[rows]
+            a = mus[A]
+            G_AA = gram_sub(G, b, A)
+            wty = Wty[b[:, None], A]
+            u = wty - (G_AA @ a[..., None])[..., 0]
+            eye = torch.eye(n, dtype=G.dtype, device=G.device).expand(rows.numel(), n, n)
+            LU_P, piv_P, info_P = torch.linalg.lu_factor_ex(gather_sub(Psi, A))
+            Pinv = torch.linalg.lu_solve(LU_P, piv_P, eye)
+            LU_M, piv_M, info_M = torch.linalg.lu_factor_ex(s2inv * G_AA + Pinv)
+            logdet = (torch.log(torch.diagonal(LU_M, dim1=-2, dim2=-1).abs()).sum(-1)
+                      + torch.log(torch.diagonal(LU_P, dim1=-2, dim2=-1).abs()).sum(-1))
+            bad = (info_P > 0) | (info_M > 0) | ~torch.isfinite(Pinv).flatten(1).all(-1)
+            yield dict(rows=rows, b=b, A=A, a=a, wty=wty, u=u,
+                       lam_u=torch.linalg.lu_solve(LU_M, piv_M, u[..., None])[..., 0],
+                       logdet=logdet, bad=bad, LU_M=LU_M, piv_M=piv_M)
+
+
+def sssc_lpj_wide(ss, Wty, y2, G, Psi, mus, pil_bar, s2inv):
+    """``sssc_lpj``'s arguments and results, on the wide path: evo_tpu's
+    ``SSSC._lpj_states`` (evo_tpu/models/sssc.py:284-329),
+
+        lpj = -1/2 (log|det M| + log|det Psi_AA| + s2inv ||y - W_A a||^2
+                    - s2inv^2 u^T M^-1 u) + sum_A pil_bar,
+
+    with ||y - W_A a||^2 = y2 - 2 a.Wty_A + a^T G_AA a.  A bad state (see
+    ``wide_solves``), or one whose lpj is not finite, is flagged and gets
+    NaN, which ``reset_lpj`` floors (never +-inf, which it would make the
+    dominant lpj)."""
+    B, K, _ = ss.shape
+    s2inv = torch.as_tensor(s2inv, dtype=Wty.dtype, device=Wty.device)
+    b_of = torch.arange(B * K, device=ss.device) // K
+    lpj = (-0.5 * s2inv * y2[b_of]).clone()  # the empty state
+    bad = torch.zeros(B * K, dtype=Wty.dtype, device=Wty.device)
+    for c in wide_solves(ss, Wty, G, Psi, mus, s2inv):
+        a, wty, u = c["a"], c["wty"], c["u"]
+        ynorm2 = y2[c["b"]] - 2.0 * (a * wty).sum(-1) + (a * (wty - u)).sum(-1)
+        val = (-0.5 * (c["logdet"] + s2inv * ynorm2 - s2inv * s2inv * (u * c["lam_u"]).sum(-1))
+               + pil_bar[c["A"]].sum(-1))
+        flag = c["bad"] | ~torch.isfinite(val)
+        lpj[c["rows"]] = torch.where(flag, float("nan"), val)
+        bad[c["rows"]] = flag.to(bad.dtype)
+    return lpj.reshape(B, K), bad.reshape(B, K)
+
+
+def sssc_suffstat_wide(ss, rs, Wty, G, Psi, mus, s2inv):
+    """``sssc_suffstat``'s arguments and results, on the wide path: the
+    merged states re-solved for the statistics, as evo_tpu does above
+    ``STASH_MAX_H`` (evo_tpu/models/sssc.py:509-539), with the posterior
+    slab means kappa = s2inv M^-1 u + a and covariances lambda = M^-1 on
+    the active units.  A bad state contributes nothing, and non-finite
+    entries are 0 (evo_tpu's ``nan_to_num``).  The lambda shares are summed
+    per H^2 bin in f64, as in ``sssc_suffstat_plain``."""
+    B, S, H = ss.shape
+    s2inv = torch.as_tensor(s2inv, dtype=Wty.dtype, device=Wty.device)
+    r = rs.reshape(B * S)
+    kappa = torch.zeros((B * S, H), dtype=Wty.dtype, device=Wty.device)
+    szsz = torch.zeros(H * H, dtype=torch.float64, device=Wty.device)
+    for c in wide_solves(ss, Wty, G, Psi, mus, s2inv):
+        rows, A, ok = c["rows"], c["A"], ~c["bad"]
+        n = A.shape[1]
+        eye = torch.eye(n, dtype=Wty.dtype, device=Wty.device).expand(rows.numel(), n, n)
+        lam = torch.linalg.lu_solve(c["LU_M"], c["piv_M"], eye)
+        kap = s2inv * c["lam_u"] + c["a"]
+        kappa[rows[:, None], A] = torch.nan_to_num(torch.where(ok[:, None], kap, 0.0),
+                                                   nan=0.0, posinf=0.0, neginf=0.0)
+        lam = torch.nan_to_num(torch.where(ok[:, None, None], lam, 0.0),
+                               nan=0.0, posinf=0.0, neginf=0.0)
+        flat = (A[:, :, None] * H + A[:, None, :]).flatten()
+        szsz.index_add_(0, flat, (r[rows, None, None] * lam).flatten().double())
+    return moments(ss.reshape(B * S, H), r, kappa, szsz, B)
 
 
 @dataclasses.dataclass
@@ -95,17 +205,18 @@ class SSSC:
     def __post_init__(self):
         object.__setattr__(self, "device", resolve_device(self.device))
 
-    def _check_width(self, data: Data):
-        """The kernels' envelope: H <= 128, and H <= 64 on incomplete data
-        (evo_tpu's masked kernels stop at Hp <= 64 and its XLA path runs
-        wider models; the port has no such path yet)."""
-        if self.H > MAX_H:
-            raise NotImplementedError(
-                f"H={self.H}: the port's SSSC kernels cover H <= {MAX_H}")
-        if data.incomplete and self.H > MASKED_MAX_H:
-            raise NotImplementedError(
-                f"H={self.H}: the port's masked SSSC kernels (incomplete data) "
-                f"cover H <= {MASKED_MAX_H}")
+    def wide(self, data: Data) -> bool:
+        """Whether this model takes the wide path on ``data``: H above the
+        kernels' limit, ``MASKED_MAX_H`` on incomplete data and ``MAX_H``
+        on complete data (evo_tpu's ``pallas_sssc_applicable``)."""
+        limit = sssc_lpj_ops.MASKED_MAX_H if data.incomplete else sssc_lpj_ops.MAX_H
+        return self.H > limit
+
+    def _lpj_fns(self, data: Data):
+        """(lpj, suffstat) functions of this model's path on ``data``."""
+        if self.wide(data):
+            return sssc_lpj_wide, sssc_suffstat_wide
+        return sssc_lpj, sssc_suffstat
 
     # ------------------------------------------------------------------ init
 
@@ -117,7 +228,6 @@ class SSSC:
         data, NaN marking missing entries) to skip the device-to-host copy.
         On incomplete data the mean is normalized by N and sigma2 taken over
         the observed entries (reference sssc.py:146-153)."""
-        self._check_width(data)
         check_single_process()
         y, m = host_data(data, self.D, y_host)
         N = y.shape[0]
@@ -196,13 +306,14 @@ class SSSC:
     # ---------------------------------------------------------------- E-step
 
     def _estep_block(self, generator, ss_b, G_b, Wty_b, y2_b, valid_b, params, pre,
-                     cfg: EAConfig):
-        """Evolutionary E-step of one block [B, ...] (mirrors BSC's).
-        Returns (ss2, lpj2, n_uni [B], n_sub [B], reset counts [3])."""
+                     cfg: EAConfig, lpj_fn):
+        """Evolutionary E-step of one block [B, ...] (mirrors BSC's), the
+        lpj by ``lpj_fn`` (the kernel's or the wide path's).  Returns (ss2,
+        lpj2, n_uni [B], n_sub [B], reset counts [3])."""
 
         def lpj_block(states):
-            lpj, _bad = sssc_lpj(states, Wty_b, y2_b, G_b, params.Psi, params.mus,
-                                 pre["pil_bar"], pre["sigma2_inv"])
+            lpj, _bad = lpj_fn(states, Wty_b, y2_b, G_b, params.Psi, params.mus,
+                               pre["pil_bar"], pre["sigma2_inv"])
             lpj, counts = reset_lpj(lpj, valid=valid_b)
             return lpj, None, torch.stack(counts)
 
@@ -231,7 +342,7 @@ class SSSC:
         ``generator`` (on the data's device) drives every random draw of
         the EA."""
         check_em_step(data, do_reconstruction)
-        self._check_width(data)
+        lpj_fn, suffstat_fn = self._lpj_fns(data)
         params = self.check_params(params)
         pre = self._precompute(params, data)
         dt, dev, H = params.W.dtype, params.W.device, self.H
@@ -257,13 +368,13 @@ class SSSC:
             if cfg.packed_states:
                 ss_b = unpack_bits_lane(ss_b, H).to(torch.int8)
             ss2, lpj2, n_uni, n_sub, counts = self._estep_block(
-                generator, ss_b, G_b, Wty_b, y2_b, valid_b, params, pre, cfg)
+                generator, ss_b, G_b, Wty_b, y2_b, valid_b, params, pre, cfg, lpj_fn)
             if cfg.allzero:  # the permanent all-zero state (evo_tpu sssc.py:467-469)
                 lpj2 = torch.cat([-0.5 * pre["sigma2_inv"] * y2_b[:, None], lpj2], 1)
             vf = valid_b.to(dt)
             Fsum += (shifted_logsumexp(lpj2) * vf).sum()
             rs = (posterior_weights(lpj2) * vf[:, None])[:, cfg.S_perm:].contiguous()
-            xpt_sz, xpt_s, xpt_ss, xpt_szsz, s_sz, sz_sz = sssc_suffstat(
+            xpt_sz, xpt_s, xpt_ss, xpt_szsz, s_sz, sz_sz = suffstat_fn(
                 ss2, rs, Wty_b, G_b, params.Psi, params.mus, pre["sigma2_inv"])
             y_m = y_b
             if do_reconstruction:
@@ -359,7 +470,7 @@ class SSSC:
     def exact_free_energy(self, params: SSSCParams, data: Data) -> torch.Tensor:
         """Exact log-likelihood by enumerating all 2^H states (small H): the
         correctness oracle (reference _models.py:334-451)."""
-        self._check_width(data)
+        lpj_fn = self._lpj_fns(data)[0]
         params = self.check_params(params)
         pre = self._precompute(params, data)
         sm = torch.from_numpy(full_state_matrix(self.H).view(np.int8)).to(params.W.device)
@@ -368,8 +479,8 @@ class SSSC:
             y_b = data.y[i]
             G_b, Wty_b, y2_b = block_gram(params.W, y_b, data.x_infr[i], data.incomplete)
             states = sm.expand(y_b.shape[0], -1, -1).contiguous()
-            lpj, _ = sssc_lpj(states, Wty_b, y2_b, G_b, params.Psi, params.mus,
-                              pre["pil_bar"], pre["sigma2_inv"])
+            lpj, _ = lpj_fn(states, Wty_b, y2_b, G_b, params.Psi, params.mus,
+                            pre["pil_bar"], pre["sigma2_inv"])
             lpj, _ = reset_lpj(lpj)
             Fsum += (shifted_logsumexp(lpj) * data.row_valid[i].to(lpj.dtype)).sum()
         return pre["ljc"] + Fsum / pre["N"]

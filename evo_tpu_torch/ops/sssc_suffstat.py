@@ -86,11 +86,19 @@ def sssc_suffstat_plain(ss, rs, Wty, G, Psi, mus, s2inv):
         kappa[rows[:, None], A] = _finite(s2inv * (lam @ u[..., None])[..., 0] + a)
         flat = (A[:, :, None] * H + A[:, None, :]).flatten()
         szsz.index_add_(0, flat, (r[rows, None, None] * _finite(lam)).flatten().double())
-    sf = rows_ss.to(Wty.dtype)
+    return moments(rows_ss, r, kappa, szsz, B)
+
+
+def moments(rows_ss, r, kappa, szsz, B):
+    """The six statistics from the flat states [B S, H], their
+    responsibilities [B S], posterior slab means kappa [B S, H] (zero on
+    inactive units) and the lambda shares summed per H^2 bin (f64 [H^2])."""
+    H = rows_ss.shape[-1]
+    sf = rows_ss.to(kappa.dtype)
     w_s, w_k = r[:, None] * sf, r[:, None] * kappa
-    xpt_s = w_s.reshape(B, S, H).sum(1)
-    xpt_sz = w_k.reshape(B, S, H).sum(1)
-    return (xpt_sz, xpt_s, w_s.T @ sf, szsz.reshape(H, H).to(Wty.dtype) + w_k.T @ kappa,
+    xpt_s = w_s.reshape(B, -1, H).sum(1)
+    xpt_sz = w_k.reshape(B, -1, H).sum(1)
+    return (xpt_sz, xpt_s, w_s.T @ sf, szsz.reshape(H, H).to(kappa.dtype) + w_k.T @ kappa,
             xpt_s.T @ xpt_sz, xpt_sz.T @ xpt_sz)
 
 

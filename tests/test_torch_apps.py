@@ -209,11 +209,14 @@ def test_gather_reconstruction_drops_the_padding():
 
 
 def test_bucket_overflow_warning_streak():
-    """At 64 < H <= 128 (SSSC), 3 epochs in a row with nonzero n_reset_nan
-    warn once; SSSC at H <= 64 and BSC never do."""
+    """At 64 < H <= 128 (SSSC, complete data), 3 epochs in a row with
+    nonzero n_reset_nan warn once; SSSC at H <= 64, on the wide path (H >
+    128, or incomplete data at H > 64) and BSC never do."""
+    complete = make_data(np.ones((4, 16), np.float32), device="cpu")
+    incomplete = make_data(np.where(np.eye(4, 16) > 0, np.nan, 1.0), device="cpu")
     tr = EMTrainer.__new__(EMTrainer)
     tr._overflow_nan_streak, tr._overflow_warned = 0, False
-    tr.model = SSSC(D=16, H=100, device="cpu")
+    tr.model, tr.data = SSSC(D=16, H=100, device="cpu"), complete
     with warnings.catch_warnings():
         warnings.simplefilter("error")
         tr._warn_bucket_overflow(3)
@@ -226,10 +229,13 @@ def test_bucket_overflow_warning_streak():
     with warnings.catch_warnings():
         warnings.simplefilter("error")
         tr._warn_bucket_overflow(5)  # once only
-    for model in (SSSC(D=16, H=32, device="cpu"), BSC(D=16, H=100, device="cpu")):
+    for model, data in ((SSSC(D=16, H=32, device="cpu"), complete),
+                        (SSSC(D=16, H=129, device="cpu"), complete),
+                        (SSSC(D=16, H=100, device="cpu"), incomplete),
+                        (BSC(D=16, H=100, device="cpu"), complete)):
         tr2 = EMTrainer.__new__(EMTrainer)
         tr2._overflow_nan_streak, tr2._overflow_warned = 0, False
-        tr2.model = model
+        tr2.model, tr2.data = model, data
         with warnings.catch_warnings():
             warnings.simplefilter("error")
             for _ in range(5):

@@ -177,11 +177,12 @@ def test_sssc_convert_round_trip():
 
 
 def test_unported_paths_raise():
-    """Incomplete data without reconstruction raise evo_tpu's ValueError;
-    H > 128 and incomplete data at H > 64 (evo_tpu's XLA path, not
-    ported) raise NotImplementedError.  Packed and permanent states and the
-    other merges run now (tests/test_torch_eopts.py and
-    tests/test_torch_packed.py hold them against evo_tpu)."""
+    """Incomplete data without reconstruction raise evo_tpu's ValueError.
+    Everything else runs: packed and permanent states and the other merges
+    (tests/test_torch_eopts.py and tests/test_torch_packed.py hold them
+    against evo_tpu), and the widths past the kernels' envelope, H = 129 on
+    complete data and H = 65 on incomplete data, on the wide path
+    (tests/test_torch_wide.py holds it against evo_tpu's XLA path)."""
     Y = np.random.default_rng(0).normal(size=(8, 4)).astype(np.float32)
     model = SSSC(D=4, H=3, device="cpu")
     full = make_data(Y, device="cpu")
@@ -202,10 +203,11 @@ def test_unported_paths_raise():
         assert np.isfinite(float(stats.F)), change
     for H, data in ((129, full), (65, incomplete)):
         wide = SSSC(D=4, H=H, device="cpu")
-        _, wstate = init_states(N=8, S=2, H=H, no_parents=2, device="cpu")
-        wcfg = dataclasses.replace(cfg, H=H)
-        with pytest.raises(NotImplementedError):
-            wide.em_step(None, wstate, data, torch.Generator(), wcfg, do_reconstruction=True)
+        assert wide.wide(data)
+        wcfg, wstate = init_states(N=8, S=2, H=H, no_parents=2, device="cpu")
+        stats = wide.em_step(wide.standard_init(data), wstate, data, torch.Generator(), wcfg,
+                             do_reconstruction=True)[2]
+        assert np.isfinite(float(stats.F)), H
 
 
 def test_entry_point_needs_a_card_unless_cpu_is_asked(monkeypatch):
