@@ -86,6 +86,26 @@ Phases, one line each with its seconds:
                what the wide path costs, each with one more epoch under
                torch.profiler; the wide ES3C lpj on the card
                against the same function on the CPU at H = 256 and H = 100
+ 21. parallel  (run right after trainer, on its set-up) data parallelism
+               over torch.distributed on the one card, the workers started
+               with the spawn method: the EBSC primary at full width split
+               over 2 gloo ranks (25 blocks of 2048 rows each; 1 + 3 epochs
+               with epoch_generator(0, e) from this process's Theta^0 and
+               states), the ranks' parameters equal bit for bit every
+               epoch, F within rtol 2e-4 and W within rtol 1e-3, atol 1e-4
+               of the same epochs in this process with no group, the number
+               of first-epoch states that differ printed; rank 0's
+               checkpoint after epoch 2 read here in one process, params
+               and both ranks' rows of the states equal; then the ES3C
+               primary over the same 2 ranks (1 + 2 epochs, F within rtol
+               2e-4); then a one-rank NCCL group, 1 + 1 EBSC epochs equal to
+               the no-group run bit for bit.  Per rank: ms per epoch and
+               the all_reduce's ms per epoch (two processes sharing one
+               card: no scaling figure), launch counts checked
+ 22. compat    the reference's driver pattern (bars test, init_states,
+               standard_init, check_params, step) through
+               evo_tpu_torch.compat: 15 steps, F rising, the compat's exact
+               free energy equal to the core model's
 The kernels phase also holds the ES3C kernels, the masked ones (incomplete
 data) included, against their plain versions at those paths' shapes, and
 the packed-input EBSC kernels against their plain versions and, bit for
@@ -112,16 +132,21 @@ every kernel also has its device time (`device_ms`, calls replayed from a
 CUDA graph, so the host's launch cost is left out).  Then a JSON line with
 the kernels' numbers and, last, the result line.
 
-Any failed check raises and the script exits non-zero; it also exits
-non-zero without a result when no CUDA card is present.  The whole run is
-under a self-enforced 600 s deadline.  It imports only evo_tpu_torch,
-torch and numpy (so it fails at once outside the repository), needs neither
-h5py nor matplotlib, writes only under the temporary directory, and starts
-no process but nvcc and nvidia-smi.
+Any failed check raises and the script exits non-zero, as does a worker
+of the parallel phase that fails or overruns its time limit (all of them
+are then killed); it also exits non-zero without a result when no CUDA
+card is present.  The whole run is under a self-enforced 600 s deadline,
+which also kills the workers.  It imports only evo_tpu_torch, torch and
+numpy (so it fails at once outside the repository), needs neither h5py nor
+matplotlib, writes only under the temporary directory, and starts no
+process but nvcc, nvidia-smi and the parallel phase's workers (two at
+most at a time, each under a wall-clock limit).
 """
 
 import dataclasses
+import hashlib
 import json
+import multiprocessing
 import os
 import subprocess
 import sys
@@ -140,7 +165,7 @@ from evo_tpu_torch.apps.training import EMTrainer
 from evo_tpu_torch.models.base import block_gram, em_steps, epoch_generator
 from evo_tpu_torch.ops import _build
 from evo_tpu_torch.ops.bitpack import (
-    n_bytes_lane, pack_bits_lane, pack_bits_u8, unpack_bits_lane)
+    n_bytes_lane, pack_bits_lane, pack_bits_u8, unpack_bits_lane, unpack_bits_u8)
 from evo_tpu_torch.ops.bsc_lpj import bsc_lpj, bsc_lpj_plain, key_words
 from evo_tpu_torch.ops.bsc_suffstat import bsc_suffstat, bsc_suffstat_plain
 from evo_tpu_torch.ops.sssc_lpj import (
@@ -159,7 +184,9 @@ from evo_tpu_torch.ops.sssc_suffstat import (
 from evo_tpu_torch.models.sssc import sssc_lpj_wide
 from evo_tpu_torch.prepost import MultiDimOverlappingPatches, psnr
 from evo_tpu_torch.prepost.device_merge import DeviceMerger
+from evo_tpu_torch.utils.checkpoint import load_checkpoint
 from evo_tpu_torch.utils.datalog import DataLog, StoreToTxt
+from evo_tpu_torch.variational.state_init import EState
 
 DEADLINE_S = 600
 DEVICE = "cuda"
@@ -198,6 +225,9 @@ WIDE_BSC = (1280, 4096)
 def _watchdog():
     print(f"DEADLINE: {DEADLINE_S} s passed in phase {CARD['phase']!r}; aborting",
           flush=True)
+    for p in CHILDREN:
+        if p.is_alive():
+            p.kill()
     os._exit(3)
 
 
@@ -1614,7 +1644,8 @@ def trainer(launches):
     as one em_steps chunk), then em_steps over the 4 epochs and the bare
     em_step loop with epoch_generator, all from the same Theta^0 and states;
     every run's F, parameters and states equal bit for bit, 2 lpj and 1
-    suffstat launches per block and epoch."""
+    suffstat launches per block and epoch.  Returns the set-up (model,
+    data, cfg, states, Theta^0) for the parallel phase."""
     t0 = time.perf_counter()
     model, data, cfg, estate0, params0 = primary_setup(DEVICE)
     torch.cuda.synchronize()
@@ -1701,6 +1732,7 @@ def trainer(launches):
     say(f"checkpoint of {e_a.ss.numel() / 1e9:.2f} GB of int8 states ({size:.0f} MB on "
         f"disk): write {[round(x, 2) for x in ckpt_s]} s (of which packing on the card and "
         f"copying to the host {pack_s:.2f} s), read (resume) {read_s:.2f} s on {CARD['smi']}")
+    return model, data, cfg, estate0, params0
 
 
 def bars_app(launches):
@@ -1984,6 +2016,317 @@ def wide(launches, Y_fl):
     return total
 
 
+# the parallel phase: worker processes and their wall-clock limit
+WORKER_TIMEOUT_S = 180
+CHILDREN = []
+
+
+def spawn(fn, argsets):
+    """Run fn(*args) for each of ``argsets`` in processes started with the
+    spawn method (CUDA does not survive fork), all at once; kill every one
+    of them if any overruns WORKER_TIMEOUT_S, and raise unless all exit 0."""
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=fn, args=a, daemon=True) for a in argsets]
+    CHILDREN.extend(procs)
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + WORKER_TIMEOUT_S
+    try:
+        for p in procs:
+            p.join(max(0.0, deadline - time.monotonic()))
+    finally:
+        late = [p for p in procs if p.is_alive()]
+        for p in late:
+            p.kill()
+            p.join()
+    if late:
+        raise AssertionError(f"{len(late)} worker(s) overran {WORKER_TIMEOUT_S} s; all killed")
+    bad = [(i, p.exitcode) for i, p in enumerate(procs) if p.exitcode != 0]
+    if bad:
+        raise AssertionError(f"worker(s) failed (index, exit code): {bad}")
+
+
+def state_digest(estate, lo=0, hi=None):
+    """blake2b of rows lo:hi of every block of an int8 EState's states
+    (bit-packed) and lpj."""
+    h = hashlib.blake2b(digest_size=16)
+    for b in range(estate.ss.shape[0]):
+        h.update(pack_bits_u8(estate.ss[b, lo:hi].contiguous()).cpu().numpy().tobytes())
+        h.update(estate.lpj[b, lo:hi].cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def host_params(params):
+    return {f: v.cpu().numpy() for f, v in vars(params).items()}
+
+
+def save_inputs(tmp, kind, model, data, cfg, estate, params):
+    """A run's inputs for the workers: y [nb, B, D] and the states,
+    bit-packed [nb, B, S, ceil(H/8)], as .npy files (read with mmap, so
+    that each worker reads its rows only), Theta^0 as an .npz; returns the
+    settings."""
+    np.save(os.path.join(tmp, f"{kind}-y.npy"), data.y.cpu().numpy())
+    np.save(os.path.join(tmp, f"{kind}-ss.npy"),
+            torch.stack([pack_bits_u8(b) for b in estate.ss]).cpu().numpy())
+    np.savez(os.path.join(tmp, f"{kind}-theta.npz"), **host_params(params))
+    return dict(kind=kind, D=model.D, H=model.H, to_learn=model.to_learn, cfg=cfg)
+
+
+def one_process_run(model, data, cfg, estate, params, n_epochs, launches, expect):
+    """The no-group run the ranks are held to: epochs with
+    epoch_generator(0, e), with F, parameters, the first epoch's packed
+    states and each epoch's state digest; launch counts checked."""
+    run = dict(F=[], params=[], digest=[])
+    launches.reset()
+    for e in range(n_epochs):
+        params, estate, stats, _ = model.em_step(params, estate, data,
+                                                 epoch_generator(0, e, DEVICE), cfg)
+        run["F"].append(float(stats.F))
+        run["params"].append(host_params(params))
+        run["digest"].append(state_digest(estate))
+        if e == 0:
+            run["ss0"] = torch.stack([pack_bits_u8(b) for b in estate.ss]).cpu().numpy()
+    launches.expect(**{k: v * n_epochs for k, v in expect.items()})
+    return run
+
+
+def parallel_worker(tmp, rank, world, backend, jobs):
+    """One rank of a data-parallel group on the card: for each job (the
+    inputs of ``save_inputs`` and its epochs), this rank's rows through
+    make_global_data, Theta^0 from global sums against the parent's, the
+    epochs with epoch_generator(0, e), each epoch's host time (ending in
+    torch.cuda.synchronize) and its all_reduce's, F, parameters, state
+    digests and launch counts to <tmp>/<kind>-<backend>-rank<rank>.npz."""
+    from evo_tpu_torch import BSCParams
+    from evo_tpu_torch.parallel import distributed, init_distributed, make_global_data
+    from evo_tpu_torch.utils.checkpoint import save_checkpoint
+
+    init_distributed(backend=backend, rank=rank, world_size=world, device=DEVICE,
+                     init_method="file://" + os.path.join(tmp, f"store-{backend}"))
+    plain_sums, ar_ms = distributed.allreduce_sums, []
+
+    def timed_sums(*dicts):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = plain_sums(*dicts)
+        torch.cuda.synchronize()
+        ar_ms.append(1e3 * (time.perf_counter() - t))
+        return out
+
+    distributed.allreduce_sums = timed_sums  # the models call it through the module
+    launches = Launches()
+    for job in jobs:
+        kind, n_epochs = job["kind"], job["epochs"]
+        y = np.load(os.path.join(tmp, f"{kind}-y.npy"), mmap_mode="r")
+        nb, Bg, D_ = y.shape
+        Bl = Bg // world
+        y_loc = np.ascontiguousarray(y[:, rank * Bl:(rank + 1) * Bl]).reshape(-1, D_)
+        data = make_global_data(y_loc, n_blocks=nb, device=DEVICE)
+        packed = np.load(os.path.join(tmp, f"{kind}-ss.npy"), mmap_mode="r")
+        cfg = job["cfg"]
+        ss = torch.stack([unpack_bits_u8(torch.from_numpy(packed[b, rank * Bl:(rank + 1) * Bl]
+                                                          .copy()).to(DEVICE), cfg.H)
+                          for b in range(nb)]).to(torch.int8)
+        estate = EState(ss=ss, lpj=torch.zeros((nb, Bl, cfg.S_perm + cfg.S), device=DEVICE))
+        model = (BSC if kind == "bsc" else SSSC)(D=job["D"], H=job["H"],
+                                                 to_learn=job["to_learn"], device=DEVICE)
+        with np.load(os.path.join(tmp, f"{kind}-theta.npz")) as z:
+            theta0 = {f: z[f] for f in z.files}
+        params = (BSCParams if kind == "bsc" else SSSCParams)(
+            **{f: torch.as_tensor(v, device=DEVICE) for f, v in theta0.items()})
+        mine = host_params(model.standard_init(data, seed=0, y_host=y_loc))
+        theta_err = max(float(np.abs(mine[f] - theta0[f]).max() / (np.abs(theta0[f]).max()))
+                        for f in theta0)
+        if not all(np.allclose(mine[f], theta0[f], rtol=1e-4, atol=1e-5) for f in theta0):
+            raise AssertionError(f"rank {rank}: Theta^0 from global sums differs ({theta_err})")
+        res, ms = dict(theta_err=theta_err), []
+        del ar_ms[:]
+        launches.reset()
+        for e in range(n_epochs):
+            t = time.perf_counter()
+            params, estate, stats, _ = model.em_step(params, estate, data,
+                                                     epoch_generator(0, e, DEVICE), cfg)
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t))
+            res[f"F{e}"] = float(stats.F)
+            res.update({f"p{e}/{f}": v for f, v in host_params(params).items()})
+            res[f"digest{e}"] = state_digest(estate)
+            if e == 0 and job.get("first_states"):
+                res["ss0"] = torch.stack([pack_bits_u8(b) for b in estate.ss]).cpu().numpy()
+            if e + 1 == job.get("checkpoint_after"):
+                t = time.perf_counter()
+                save_checkpoint(os.path.join(tmp, f"{kind}-ckpt.npz"), params, estate, e + 1, 0,
+                                cfg, model, data)
+                res["ckpt_s"] = time.perf_counter() - t
+        res.update(ms=np.asarray(ms), allreduce_ms=np.asarray(ar_ms),
+                   counts=json.dumps({k: getattr(f, a) for k, (f, a) in launches.fns.items()}))
+        np.savez(os.path.join(tmp, f"{kind}-{backend}-rank{rank}.npz"), **res)
+    torch.distributed.destroy_process_group()
+
+
+def rank_results(tmp, kind, backend, world):
+    out = []
+    for rank in range(world):
+        with np.load(os.path.join(tmp, f"{kind}-{backend}-rank{rank}.npz")) as z:
+            r = {k: z[k] for k in z.files}
+        r["counts"] = json.loads(str(r["counts"]))
+        out.append(r)
+    return out
+
+
+def check_counts(label, got, want):
+    """A worker's launch counts: those of ``want`` and no other kernel."""
+    got = {k: v for k, v in got.items() if v or k in want}
+    if got != want:
+        raise AssertionError(f"{label}: launches {got}, expected {want}")
+
+
+def check_ranks(label, ranks, one, n_epochs, expect, w_tol=True):
+    """The ranks' results against each other (parameters bit for bit every
+    epoch) and against the no-group run (F within rtol 2e-4, W within rtol
+    1e-3, atol 1e-4 with ``w_tol``); per-rank epoch and all_reduce ms and
+    launch counts.  Returns the ranks' summed launch counts."""
+    total = {}
+    for rank, r in enumerate(ranks):
+        check_counts(f"{label} rank {rank}", r["counts"],
+                     {k: v * n_epochs for k, v in expect.items()})
+        add_counts(total, r["counts"])
+        say(f"{label} rank {rank}: ms per epoch {[round(float(m), 1) for m in r['ms']]} "
+            f"(first is warm-up), all_reduce ms per epoch "
+            f"{[round(float(m), 2) for m in r['allreduce_ms']]}; Theta^0 from global sums "
+            f"within {float(r['theta_err']):.2g} of the parent's")
+    for e in range(n_epochs):
+        for f in one["params"][e]:
+            if not np.array_equal(ranks[0][f"p{e}/{f}"], ranks[1][f"p{e}/{f}"]):
+                raise AssertionError(f"{label}: the ranks' {f} differ after epoch {e + 1}")
+    F = [float(ranks[0][f"F{e}"]) for e in range(n_epochs)]
+    dW = max(float(np.abs(ranks[0][f"p{e}/W"] - one["params"][e]["W"]).max())
+             for e in range(n_epochs))
+    say(f"{label}: F per epoch, 2 ranks {F}; one process {one['F'][:n_epochs]}; "
+        f"max |dW| {dW:.3g}")
+    if not np.allclose(F, one["F"][:n_epochs], rtol=2e-4, atol=0):
+        raise AssertionError(f"{label}: F of the 2 ranks is not within rtol 2e-4")
+    if w_tol and not all(np.allclose(ranks[0][f"p{e}/W"], one["params"][e]["W"], rtol=1e-3,
+                                     atol=1e-4) for e in range(n_epochs)):
+        raise AssertionError(f"{label}: W of the 2 ranks is not within rtol 1e-3, atol 1e-4")
+    return total
+
+
+def parallel(launches, primary):
+    """Data parallelism on the one card: the EBSC primary at full width
+    split over 2 gloo ranks (each 25 blocks of 2048 rows; 1 + 3 epochs, a
+    checkpoint by rank 0 after epoch 2, read back here in one process), then
+    the ES3C primary over the same 2 ranks (1 + 2 epochs), then a one-rank
+    NCCL group on the EBSC primary (1 + 1 epochs, bit for bit the no-group
+    run).  Both ranks start from this process's Theta^0 and full states.
+    Two processes share the card, so their times are no scaling figure.
+    Returns the workers' launch counts."""
+    model, data, cfg, estate0, params0 = primary
+    B_loc = B // 2
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        bsc_job = dict(save_inputs(tmp, "bsc", model, data, cfg, estate0, params0), epochs=4,
+                       checkpoint_after=2, first_states=True)
+        s_model, s_data, s_cfg, s_estate, s_params = sssc_setup(SSSC_PRIMARY)(DEVICE)
+        sssc_job = dict(save_inputs(tmp, "sssc", s_model, s_data, s_cfg, s_estate, s_params),
+                        epochs=3)
+        say(f"inputs to files {time.perf_counter() - t0:.1f} s")
+        one = one_process_run(model, data, cfg, estate0, params0, 4, launches,
+                              dict(lpj=2 * N_BLOCKS, suffstat=N_BLOCKS))
+        one_s = one_process_run(s_model, s_data, s_cfg, s_estate, s_params, 3, launches,
+                                dict(sssc_lpj=2 * SSSC_PRIMARY[0], sssc_suffstat=SSSC_PRIMARY[0]))
+        del s_model, s_data, s_estate, s_params
+        torch.cuda.synchronize()
+
+        t0 = time.perf_counter()
+        spawn(parallel_worker, [(tmp, r, 2, "gloo", [bsc_job, sssc_job]) for r in range(2)])
+        say(f"2 gloo ranks on the one card (two processes sharing it, not a scaling figure): "
+            f"{time.perf_counter() - t0:.1f} s with their start")
+        ranks = rank_results(tmp, "bsc", "gloo", 2)
+        total = check_ranks("ebsc 2 ranks", ranks, one, 4, dict(lpj=2 * N_BLOCKS,
+                                                                suffstat=N_BLOCKS))
+        differ = sum(int((r["ss0"] != one["ss0"][:, k * B_loc:(k + 1) * B_loc]).any(-1).sum())
+                     for k, r in enumerate(ranks))
+        say(f"first epoch: {differ} of {N_BLOCKS * B * S} states differ from the one-process "
+            f"run's")
+        t = time.perf_counter()
+        p_ck, e_ck, epoch, _ = load_checkpoint(os.path.join(tmp, "bsc-ckpt.npz"), params0,
+                                               cfg, model, data)
+        read_s = time.perf_counter() - t
+        if epoch != 2 or any(not np.array_equal(v, ranks[0][f"p1/{f}"])
+                             for f, v in host_params(p_ck).items()):
+            raise AssertionError("the 2-rank checkpoint's epoch or params differ from the ranks'")
+        for k, r in enumerate(ranks):
+            if state_digest(e_ck, k * B_loc, (k + 1) * B_loc) != str(r["digest1"]):
+                raise AssertionError(f"the 2-rank checkpoint's rows of rank {k} differ")
+        say(f"checkpoint after epoch 2 by rank 0: written in {float(ranks[0]['ckpt_s']):.2f} s "
+            f"(gather and write), read in one process in {read_s:.2f} s; params and both "
+            f"ranks' rows of the states equal")
+        del p_ck, e_ck
+        add_counts(total, check_ranks("es3c 2 ranks", rank_results(tmp, "sssc", "gloo", 2),
+                                      one_s, 3, dict(sssc_lpj=2 * SSSC_PRIMARY[0],
+                                                     sssc_suffstat=SSSC_PRIMARY[0]),
+                                      w_tol=False))
+
+        t0 = time.perf_counter()
+        spawn(parallel_worker, [(tmp, 0, 1, "nccl", [dict(bsc_job, epochs=2,
+                                                          checkpoint_after=None,
+                                                          first_states=False)])])
+        (r,) = rank_results(tmp, "bsc", "nccl", 1)
+        for e in range(2):
+            same = (float(r[f"F{e}"]) == one["F"][e] and str(r[f"digest{e}"]) == one["digest"][e]
+                    and all(np.array_equal(r[f"p{e}/{f}"], v)
+                            for f, v in one["params"][e].items()))
+            if not same:
+                raise AssertionError(f"the one-rank NCCL group differs from the no-group run "
+                                     f"in epoch {e + 1}")
+        check_counts("nccl rank", r["counts"], dict(lpj=4 * N_BLOCKS, suffstat=2 * N_BLOCKS))
+        add_counts(total, r["counts"])
+        say(f"one-rank NCCL group: epochs 1-2 equal the no-group run bit for bit (F, params, "
+            f"states); ms per epoch {[round(float(m), 1) for m in r['ms']]}, all_reduce ms "
+            f"{[round(float(m), 2) for m in r['allreduce_ms']]}; "
+            f"{time.perf_counter() - t0:.1f} s with its start")
+    return total
+
+
+def compat(launches):
+    """The reference driver pattern (tests/test_compat.py:11-33: the bars
+    test, init_states, standard_init, check_params, step) on the card
+    through evo_tpu_torch.compat: the compat's exact free energy equals the
+    core model's, F rises over the steps, launch counts checked."""
+    from evo_tpu_torch import compat as cp
+
+    Hx, Sx, Nx, steps = 6, 12, 200, 15
+    R = Hx // 2
+    W_gen = np.zeros((R, R, Hx))
+    for i in range(R):
+        W_gen[i, :, i] = 8.0
+        W_gen[:, i, R + i] = 8.0
+    model = cp.BSC(R * R, Hx, Sx)
+    theta_gen = {"W": W_gen.reshape(R * R, Hx), "pi": 2.0 / Hx, "sigma": 1.0}
+    Y = model.generate_data(theta_gen, Nx, seed=0)["y"]
+    my_data = {"y": Y, "x_infr": ~np.isnan(Y)}
+    theta = model.check_params(model.standard_init(my_data, seed=0))
+    my_suff_stat = cp.init_states(Nx, Sx, Hx, "fit", "randflip", 6, 1, 1, seed=0)
+    launches.reset()
+    L_gen = model.free_energy(my_data, dict(theta_gen), my_suff_stat, full=True)
+    core = BSC(D=R * R, H=Hx, device=DEVICE)
+    F_core = float(core.exact_free_energy(model._to_params(theta_gen),
+                                          make_data(Y, device=DEVICE)))
+    Fs = []
+    for _ in range(steps):
+        F, _, _, theta = model.step(theta, my_suff_stat, my_data)
+        Fs.append(F)
+    counts = launches.expect(lpj=2 + 2 * steps, suffstat=steps)
+    say(f"compat BSC H={Hx} N={Nx}: F {Fs[0]:.4f} -> {Fs[-1]:.4f} over {steps} steps; exact "
+        f"free energy of theta_gen: compat {L_gen:.6f}, core {F_core:.6f}")
+    if not abs(L_gen - F_core) <= 1e-6 * abs(F_core):
+        raise AssertionError("the compat's exact free energy differs from the core model's")
+    if not (np.isfinite(Fs).all() and Fs[-1] > Fs[0] and Fs[-1] <= L_gen + 1.0):
+        raise AssertionError(f"compat F did not rise to below L_gen + 1: {Fs}")
+    return counts
+
+
 class Launches:
     """Reads and resets the kernel wrappers' launch counters (the packed
     modes of the EBSC kernels count apart from their int8 modes)."""
@@ -2091,7 +2434,10 @@ def main():
     with Phase("eopts"):
         eopts(launches)
     with Phase("trainer"):
-        trainer(launches)
+        primary = trainer(launches)
+    with Phase("parallel"):
+        par = parallel(launches, primary)
+        del primary
     with Phase("bars_app"):
         bars_app(launches)
     apps = {}
@@ -2104,7 +2450,11 @@ def main():
         add_counts(apps, counts_fl)
     with Phase("wide"):
         add_counts(apps, wide(launches, Y_fl))
+    with Phase("compat"):
+        add_counts(apps, compat(launches))
 
+    for k in ("lpj", "suffstat", "sssc_lpj", "sssc_suffstat"):  # the workers' launches
+        apps[k] += par.get(k, 0)
     kernels = [
         dict(name="bsc_lpj", route="cuda", source="evo_tpu_torch/csrc/bsc_lpj.cu",
              replaces="evo_tpu/ops/pallas_lpj.py:97", launches=counts["lpj"] + apps["lpj"],
@@ -2112,7 +2462,8 @@ def main():
         dict(name="bsc_lpj_packed", route="cuda", source="evo_tpu_torch/csrc/bsc_lpj.cu",
              replaces="evo_tpu/ops/pallas_lpj.py:47", launches=packed_counts["lpj_packed"],
              library_ms=None, **rows["bsc_lpj_packed"]),
-        # launches: the EBSC main path, bsc_inpaint and the app phases together
+        # launches: the EBSC main path, bsc_inpaint, the app phases, parallel's
+        # workers and compat together
         dict(name="bsc_suffstat", route="cuda", source="evo_tpu_torch/csrc/bsc_suffstat.cu",
              replaces="evo_tpu/ops/pallas_suffstat.py:60",
              launches=counts["suffstat"] + bsc_inp["suffstat"] + apps["suffstat"],
@@ -2122,7 +2473,8 @@ def main():
              replaces="evo_tpu/ops/pallas_suffstat.py:30",
              launches=packed_counts["suffstat_packed"], library_ms=None,
              **rows["bsc_suffstat_packed"]),
-        # launches: the complete-data ES3C paths' runs and the app phases together
+        # launches: the complete-data ES3C paths' runs, the app phases and
+        # parallel's workers together
         dict(name="sssc_lpj", route="cuda", source="evo_tpu_torch/csrc/sssc_lpj.cu",
              replaces="evo_tpu/ops/pallas_sssc.py:676",
              launches=fl["sssc_lpj"] + prim["sssc_lpj"] + apps["sssc_lpj"], library_ms=None,

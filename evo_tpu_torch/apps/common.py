@@ -17,23 +17,28 @@ import warnings
 import numpy as np
 import torch
 
+from evo_tpu_torch.parallel import distributed
 from evo_tpu_torch.utils.datalog import DataLog, StoreToH5
 
 
 def platform_device() -> torch.device:
     """The apps' device: ``EVO_PLATFORM=cpu`` (the variable evo_tpu's apps
-    read) means the CPU; unset, the CUDA card, and no card raises (there
-    is no quiet fallback to the CPU)."""
+    read) means the CPU; unset, this process's card, and no card raises
+    (there is no quiet fallback to the CPU).  Under torchrun with
+    WORLD_SIZE > 1 it brings up the process group first, where evo_tpu's
+    apps call ``init_distributed`` (evo_tpu/apps/common.py:36-38); the card
+    is then cuda:{LOCAL_RANK % device_count}."""
     plat = os.environ.get("EVO_PLATFORM")
-    if plat is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError("no CUDA device is available; set EVO_PLATFORM=cpu "
-                               "to run on the CPU")
-        return torch.device("cuda")
-    if plat == "cpu":
-        return torch.device("cpu")
-    raise ValueError(f"EVO_PLATFORM={plat!r}: the port runs on the CUDA card "
-                     "(leave it unset) or on the CPU ('cpu')")
+    if plat not in (None, "cpu"):
+        raise ValueError(f"EVO_PLATFORM={plat!r}: the port runs on the CUDA card "
+                         "(leave it unset) or on the CPU ('cpu')")
+    if plat is None and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available; set EVO_PLATFORM=cpu "
+                           "to run on the CPU")
+    dev = distributed.process_device(plat)
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        distributed.init_distributed(device=dev)
+    return dev
 
 
 def merge_dict(*dicts):

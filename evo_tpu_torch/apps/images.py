@@ -45,6 +45,7 @@ from evo_tpu_torch.apps.viz import ReconstructionVisualizer
 from evo_tpu_torch.models.base import make_data
 from evo_tpu_torch.models.bsc import BSC
 from evo_tpu_torch.models.sssc import SSSC
+from evo_tpu_torch.parallel import distributed
 from evo_tpu_torch.prepost import (
     MultiDimOverlappingPatches,
     OverlappingPatches,
@@ -208,10 +209,13 @@ def merge_route(args, b, device) -> str:
     """'device': merge and PSNR on the card (DeviceMerger), unless
     --host_merge; else the host merge of a 'compact' read-back of the
     missing values (inpainting, unless --no_compact_readback) or of the
-    'full' reconstruction."""
-    if device.type == "cuda" and not getattr(args, "host_merge", False):
+    'full' reconstruction.  Under a process group of several ranks only
+    'full' (the gathered reconstruction), as evo_tpu/apps/images.py:173,183
+    choose."""
+    single = distributed.rank_world()[1] == 1
+    if single and device.type == "cuda" and not getattr(args, "host_merge", False):
         return "device"
-    if b["inpainting"] and getattr(args, "compact_readback", True):
+    if single and b["inpainting"] and getattr(args, "compact_readback", True):
         return "compact"
     return "full"
 

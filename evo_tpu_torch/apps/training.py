@@ -29,9 +29,10 @@ import numpy as np
 import torch
 
 from evo_tpu_torch.apps.common import merge_dict, params_to_dict, to_host
-from evo_tpu_torch.models.base import StepStats, check_single_process, em_steps, epoch_generator
+from evo_tpu_torch.models.base import StepStats, em_steps, epoch_generator
 from evo_tpu_torch.models.sssc import SSSC
 from evo_tpu_torch.ops.sssc_lpj import overflow_cap
+from evo_tpu_torch.parallel import distributed
 from evo_tpu_torch.utils import tracing
 from evo_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
 
@@ -252,7 +253,31 @@ class EMTrainer:
 
 def gather_reconstruction(y_rec: torch.Tensor, N: int) -> np.ndarray:
     """Blocked reconstruction [nb, B, D] -> host [N, D] without the padding
-    rows (single process; the multi-process gather is not ported yet)."""
-    check_single_process("gather_reconstruction")
-    arr = to_host({"y": y_rec})["y"]
+    rows (evo_tpu/apps/training.py:277-308).
+
+    Under a process group of several ranks every rank gets the whole
+    reconstruction, de-interleaved (``deinterleave_processes``) into the
+    concatenation of the ranks' own block-major row orders, [rank 0 rows |
+    rank 1 rows | ...]; N is then the global row count, and the ranks' data
+    must hold no padding rows (it would sit at the end of every rank's
+    segment), as in evo_tpu."""
+    arr = distributed.gather_global(y_rec)
+    world = distributed.rank_world()[1]
+    if world > 1:
+        arr = deinterleave_processes(arr, world)
+        total = int(np.prod(arr.shape[:-1]))
+        if total != N:
+            raise ValueError(f"gather_reconstruction: global rows {total} != N={N}; "
+                             "padding rows per process are not supported")
     return arr.reshape((-1, arr.shape[-1]))[:N]
+
+
+def deinterleave_processes(arr: np.ndarray, P: int) -> np.ndarray:
+    """[nb, B_global, ...] with each block's B axis [p0 rows | p1 rows |
+    ...] -> [P, nb, B_local, ...], so that a flat reshape gives the
+    concatenation of the processes' own block-major row orders."""
+    nb, B_global = arr.shape[:2]
+    if B_global % P:
+        raise ValueError(f"B_global={B_global} is not a multiple of {P} processes")
+    arr = arr.reshape((nb, P, B_global // P) + arr.shape[2:])
+    return np.moveaxis(arr, 1, 0)

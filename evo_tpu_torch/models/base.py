@@ -10,6 +10,11 @@ draws from ``epoch_generator(seed, e, device)``, a ``torch.Generator``
 seeded from a fixed 64-bit mix of (seed, e).  Epoch e's draws depend on the
 seed and e only, so stepping epoch by epoch, ``em_steps`` over any window
 and a resume from a checkpoint all give the same trajectory.
+
+Several processes (``evo_tpu_torch.parallel``): each rank holds its own
+rows of every block, draws the whole block's EA random numbers from the
+same generator and keeps its rows', and each epoch sums its statistics over
+the ranks in one all_reduce before the M-step.
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ import numpy as np
 import torch
 
 from evo_tpu_torch._device import resolve_device
+from evo_tpu_torch.parallel import distributed
 
 
 @dataclasses.dataclass
@@ -115,16 +121,6 @@ def check_em_step(data: Data, do_reconstruction: bool):
             "consumes the reconstructed data for its W update")
 
 
-def check_single_process(what: str = "initialization"):
-    """Raise NotImplementedError under a torch.distributed group of more
-    than one process: Theta^0 from the global sums of all processes
-    (evo_tpu's ``global_init_stats``) and the multi-process checkpoint are
-    not ported yet."""
-    if torch.distributed.is_available() and torch.distributed.is_initialized() \
-            and torch.distributed.get_world_size() > 1:
-        raise NotImplementedError(f"multi-process {what} is not ported yet")
-
-
 def host_data(data: Data, D: int, y_host=None):
     """(y [N, D], m [N, D]) on the host as the models' ``standard_init``
     reads them (evo_tpu/models/bsc.py:110-122): from ``y_host`` with NaN
@@ -137,6 +133,24 @@ def host_data(data: Data, D: int, y_host=None):
     valid = data.row_valid.reshape(-1).cpu().numpy()
     return (data.y.reshape(-1, D).cpu().numpy()[valid],
             data.x_infr.reshape(-1, D).cpu().numpy()[valid])
+
+
+def sum_over_ranks(model, params, data: Data, pre: dict, *sums: dict) -> tuple:
+    """(pre, *sums) over every rank: under a process group the tensors of
+    ``sums`` and the data sums of ``pre`` (``model.DATA_SUMS``) are summed
+    over the ranks in one all_reduce and ``pre`` is made again from the
+    global data sums (``params`` are the checked parameters it was made
+    from); without a group everything is returned as it is."""
+    if not distributed.active():
+        return (pre,) + sums
+    *sums, counts = distributed.allreduce_sums(*sums, {k: pre[k] for k in model.DATA_SUMS})
+    return (model._precompute(params, data, counts), *sums)
+
+
+def total_free_energy(model, params, data: Data, pre: dict, Fsum: torch.Tensor):
+    """F = ljc + Fsum / N, over every rank under a process group."""
+    pre, tot = sum_over_ranks(model, params, data, pre, {"Fsum": Fsum})
+    return pre["ljc"] + tot["Fsum"] / pre["N"]
 
 
 def block_gram(W: torch.Tensor, y_b: torch.Tensor, xinf_b: torch.Tensor,

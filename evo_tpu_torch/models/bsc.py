@@ -43,6 +43,11 @@ kernel.
 
 The reconstruction y_rec = where(x, y, sum_s r W s) is returned blocked
 [nb, B, D]; on incomplete data it feeds the W update and the sigma residual.
+
+Under a process group (``evo_tpu_torch.parallel``) the data, states and
+reconstruction hold this rank's rows; Theta^0 comes from global sums, and
+an epoch sums its accumulators, counters and F over the ranks in one
+all_reduce before the M-step.
 """
 
 from __future__ import annotations
@@ -60,8 +65,9 @@ from evo_tpu_torch.models.base import (
     StepStats,
     block_gram,
     check_em_step,
-    check_single_process,
     host_data,
+    sum_over_ranks,
+    total_free_energy,
 )
 from evo_tpu_torch.ops import bsc_lpj as bsc_lpj_ops
 from evo_tpu_torch.ops.bitpack import unpack_bits_lane
@@ -70,11 +76,11 @@ from evo_tpu_torch.ops.bsc_suffstat import bsc_suffstat
 from evo_tpu_torch.ops.linalg import equilibrated_pd_inverse
 from evo_tpu_torch.ops.numerics import (
     eps_lpj,
-    free_energy_from_lpj,
     posterior_weights,
     reset_lpj,
     shifted_logsumexp,
 )
+from evo_tpu_torch.parallel import distributed
 from evo_tpu_torch.variational.config import EAConfig
 from evo_tpu_torch.variational.evolve import evolve_states_block
 from evo_tpu_torch.variational.state_init import EState, full_state_matrix
@@ -126,18 +132,25 @@ class BSC:
         """Noisy-data-mean init with pi = 1/H (reference _models.py:206-283),
         drawn with NumPy from ``seed`` exactly as evo_tpu draws it.  Pass
         ``y_host`` (the flat [N, D] host data, NaN marking missing entries)
-        to skip the device-to-host copy.  On incomplete data the mean is
-        normalized by N and sigma taken over the observed entries (evo_tpu
-        bsc.py:125-135)."""
-        check_single_process()
-        y, m = host_data(data, self.D, y_host)
-        N = y.shape[0]
-        if data.incomplete:
-            y_mean = (y * m).sum(0) / N
-            sigma = np.sqrt((((y - y_mean) * m) ** 2).sum() / m.sum())
+        to skip the device-to-host copy (this rank's rows under a process
+        group).  On incomplete data the mean is normalized by N and sigma
+        taken over the observed entries (evo_tpu bsc.py:125-135).  Under a
+        group of several ranks the statistics are summed over the ranks
+        (``global_init_stats``), so that every rank draws the same Theta^0."""
+        if distributed.rank_world()[1] > 1:
+            # Theta^0 from global sums, the same on every rank (evo_tpu
+            # bsc.py:98-107): sigma = sqrt(ss_resid / m_sum)
+            _, y_mean, ss_resid, m_sum = distributed.global_init_stats(data, y_host, self.D)
+            sigma = np.sqrt(ss_resid / m_sum)
         else:
-            y_mean = y.mean(0)
-            sigma = np.sqrt(((y - y_mean) ** 2).mean(0).sum() / self.D)
+            y, m = host_data(data, self.D, y_host)
+            N = y.shape[0]
+            if data.incomplete:
+                y_mean = (y * m).sum(0) / N
+                sigma = np.sqrt((((y - y_mean) * m) ** 2).sum() / m.sum())
+            else:
+                y_mean = y.mean(0)
+                sigma = np.sqrt(((y - y_mean) ** 2).mean(0).sum() / self.D)
         if not sigma > 0.0:
             raise ValueError("the data have zero variance")
         W = y_mean[:, None] + np.random.default_rng(seed).normal(
@@ -181,36 +194,46 @@ class BSC:
 
     # ------------------------------------------------------------ precompute
 
-    def _precompute(self, p: BSCParams, data: Data) -> dict:
-        """State-independent terms (reference bsc.py:100-125); on incomplete
-        data ljc, sum_d and sum_d_y2 count the observed entries (evo_tpu
-        bsc.py:205-219)."""
-        dt = p.W.dtype
+    # the data sums of _precompute that an epoch sums over the ranks
+    DATA_SUMS = ("N", "sum_d", "sum_d_y2")
+
+    def _data_sums(self, data: Data, dt) -> dict:
+        """This rank's valid rows N, entries sum_d and sum of squares
+        sum_d_y2 (on incomplete data of the observed entries)."""
         N = data.row_valid.sum().to(dt)
-        log2pis = torch.log(2 * math.pi * p.sigma * p.sigma)
         vmask = data.row_valid[..., None].to(dt)
         y2 = data.y * data.y * vmask
         if data.incomplete:
             m = data.x_infr.to(dt)
-            sum_d = (m * vmask).sum()
-            ljc = self.H * torch.log(1.0 - p.pi) - log2pis * sum_d / N / 2
-            y2 = y2 * m
+            return dict(N=N, sum_d=(m * vmask).sum(), sum_d_y2=(y2 * m).sum())
+        return dict(N=N, sum_d=N * self.D, sum_d_y2=y2.sum())
+
+    def _precompute(self, p: BSCParams, data: Data, sums: dict = None) -> dict:
+        """State-independent terms (reference bsc.py:100-125); on incomplete
+        data ljc, sum_d and sum_d_y2 count the observed entries (evo_tpu
+        bsc.py:205-219).  ``sums`` (``DATA_SUMS`` over every rank) replaces
+        this rank's."""
+        c = sums or self._data_sums(data, p.W.dtype)
+        log2pis = torch.log(2 * math.pi * p.sigma * p.sigma)
+        if data.incomplete:
+            ljc = self.H * torch.log(1.0 - p.pi) - log2pis * c["sum_d"] / c["N"] / 2
         else:
-            sum_d = N * self.D
             ljc = self.H * torch.log(1.0 - p.pi) - self.D / 2 * log2pis
         return dict(pre1=-0.5 / (p.sigma * p.sigma), pil_bar=torch.log(p.pi / (1.0 - p.pi)),
-                    piH=p.pi * self.H, ljc=ljc, N=N, sum_d=sum_d, sum_d_y2=y2.sum())
+                    piH=p.pi * self.H, ljc=ljc, **c)
 
     # ---------------------------------------------------------------- E-step
 
     def _estep_block(self, generator, ss_b, G_b, Wty_b, y2_b, valid_b, pre,
-                     cfg: EAConfig):
+                     cfg: EAConfig, rows=None):
         """Evolutionary E-step of one block [B, ...]: lpj of the current
         K^(n), children by ``evolve_states_block``, the merge ``cfg`` asks
         for.  A per-datapoint Gram G_b [B, H, H] (incomplete data) and a
         wide model take ``lpj_gram``; the EA computes its own dedup keys
         then and on packed states (the kernel's keys are those of unpacked
-        states).  Returns (ss2, lpj2, n_uni [B], n_sub [B], reset counts [3])."""
+        states).  ``rows`` (``distributed.block_rows``) makes the EA draw the
+        global block's random numbers and keep this rank's rows.  Returns
+        (ss2, lpj2, n_uni [B], n_sub [B], reset counts [3])."""
         args = (Wty_b, y2_b, G_b, pre["pre1"], pre["pil_bar"])
         packed = cfg.packed_states
         gram_form = G_b.dim() == 3 or self.wide()
@@ -232,7 +255,7 @@ class BSC:
             zeros = torch.zeros(ss_b.shape[0], dtype=torch.int64, device=ss_b.device)
             return ss_b, lpj_K, zeros, zeros, counts
         children, child_lpj, new_unique, child_lpj_raw, aux = evolve_states_block(
-            ss_b, lpj_K, lpj_block, cfg, pre["piH"], generator, ss_dkeys=ss_keys)
+            ss_b, lpj_K, lpj_block, cfg, pre["piH"], generator, ss_dkeys=ss_keys, rows=rows)
         ss2, lpj2, n_uni, n_sub, _ = merge_states(cfg, ss_b, lpj_K, children, child_lpj,
                                                   new_unique, child_lpj_raw)
         return ss2, lpj2, n_uni, n_sub, counts + sum(aux)
@@ -255,10 +278,13 @@ class BSC:
         comes first in the stored lpj and its responsibility adds its
         residual to the sigma sum (evo_tpu bsc.py:305-309, 437-452).
         ``generator`` (on the data's device) drives every random draw of
-        the EA."""
+        the EA; under a process group every rank passes the same one.
+        There the statistics, counters and F are summed over the ranks in
+        one all_reduce after the blocks; without a group nothing is issued."""
         check_em_step(data, do_reconstruction)
         params = self.check_params(params)
         pre = self._precompute(params, data)
+        rows = distributed.block_rows(data.y.shape[1])
         dt, dev = params.W.dtype, params.W.device
         W = params.W
         Wp = torch.zeros((self.H, self.D), dtype=dt, device=dev)
@@ -279,7 +305,7 @@ class BSC:
             y_b, valid_b = data.y[i], data.row_valid[i]
             G_b, Wty_b, y2_b = block_gram(W, y_b, data.x_infr[i], data.incomplete)
             ss2, lpj2, n_uni, n_sub, counts = self._estep_block(
-                generator, estate.ss[i], G_b, Wty_b, y2_b, valid_b, pre, cfg)
+                generator, estate.ss[i], G_b, Wty_b, y2_b, valid_b, pre, cfg, rows)
             lpj_full = torch.cat([pre["pre1"] * y2_b[:, None], lpj2], 1) if S_perm else lpj2
             vf = valid_b.to(dt)
             Fsum += (shifted_logsumexp(lpj_full) * vf).sum()
@@ -318,10 +344,12 @@ class BSC:
             lpj_all[i] = lpj_full
 
         acc = dict(Wp=Wp, Wq=Wq, pies=pies, sigma=sig)
+        pre, acc, tot = sum_over_ranks(self, params, data, pre, acc,
+                                       dict(Fsum=Fsum, nuni=nuni, nsub=nsub, resets=resets))
         new_params, guard = self._m_step_finalize(params, acc, pre, data.incomplete, cfg)
-        N = pre["N"]
+        N, resets = pre["N"], tot["resets"]
         stats = StepStats(
-            F=pre["ljc"] + Fsum / N, S_nunique=nuni / N, S_sub=nsub / N,
+            F=pre["ljc"] + tot["Fsum"] / N, S_nunique=tot["nuni"] / N, S_sub=tot["nsub"] / N,
             n_reset_nan=resets[0], n_reset_small=resets[1], n_reset_inf=resets[2],
             n_guard_sigma_floor=guard, n_guard_mus_freeze=torch.zeros_like(guard),
             n_guard_psi_freeze=torch.zeros_like(guard),
@@ -362,7 +390,7 @@ class BSC:
 
     def exact_free_energy(self, params: BSCParams, data: Data) -> torch.Tensor:
         """Exact log-likelihood by enumerating all 2^H states (small H): the
-        correctness oracle."""
+        correctness oracle (over every rank under a process group)."""
         params = self.check_params(params)
         pre = self._precompute(params, data)
         sm = torch.from_numpy(full_state_matrix(self.H).view(np.int8)).to(params.W.device)
@@ -374,10 +402,13 @@ class BSC:
             lpj_fn = lpj_gram if data.incomplete or self.wide() else bsc_lpj
             lpj, _ = reset_lpj(lpj_fn(states, Wty_b, y2_b, G_b, pre["pre1"], pre["pil_bar"]))
             Fsum += (shifted_logsumexp(lpj) * data.row_valid[i].to(lpj.dtype)).sum()
-        return pre["ljc"] + Fsum / pre["N"]
+        return total_free_energy(self, params, data, pre, Fsum)
 
     def free_energy(self, params: BSCParams, estate: EState, data: Data) -> torch.Tensor:
-        """Truncated free energy from the stored lpj."""
-        pre = self._precompute(self.check_params(params), data)
+        """Truncated free energy from the stored lpj (over every rank under
+        a process group)."""
+        params = self.check_params(params)
+        pre = self._precompute(params, data)
         lpj = estate.lpj.reshape(-1, estate.lpj.shape[-1])
-        return free_energy_from_lpj(lpj, pre["ljc"], data.row_valid.reshape(-1))
+        Fsum = (shifted_logsumexp(lpj) * data.row_valid.reshape(-1).to(lpj.dtype)).sum()
+        return total_free_energy(self, params, data, pre, Fsum)

@@ -41,7 +41,12 @@ factorization (see ``wide_solves``).  The path is chosen from H
 and ``data.incomplete`` alone (``SSSC.wide``), before anything is
 launched, the same way on every device, as evo_tpu's
 ``pallas_sssc_applicable`` chooses; the limits are read when the model is
-called.  Multi-process initialization raises NotImplementedError.
+called.
+
+Under a process group (``evo_tpu_torch.parallel``) the data, states and
+reconstruction hold this rank's rows; Theta^0 comes from global sums, and
+an epoch sums its accumulators, counters and F over the ranks in one
+all_reduce before the M-step.
 """
 
 from __future__ import annotations
@@ -59,20 +64,21 @@ from evo_tpu_torch.models.base import (
     StepStats,
     block_gram,
     check_em_step,
-    check_single_process,
     host_data,
+    sum_over_ranks,
+    total_free_energy,
 )
 from evo_tpu_torch.ops import sssc_lpj as sssc_lpj_ops
 from evo_tpu_torch.ops.bitpack import pack_bits_lane, unpack_bits_lane
 from evo_tpu_torch.ops.linalg import equilibrated_pd_inverse
 from evo_tpu_torch.ops.numerics import (
-    free_energy_from_lpj,
     posterior_weights,
     reset_lpj,
     shifted_logsumexp,
 )
 from evo_tpu_torch.ops.sssc_lpj import active_groups, gather_sub, gram_sub, sssc_lpj
 from evo_tpu_torch.ops.sssc_suffstat import moments, sssc_suffstat
+from evo_tpu_torch.parallel import distributed
 from evo_tpu_torch.variational.config import EAConfig
 from evo_tpu_torch.variational.evolve import evolve_states_block
 from evo_tpu_torch.variational.state_init import EState, full_state_matrix
@@ -225,19 +231,31 @@ class SSSC:
         noisy W and data-variance sigma2 (reference sssc.py:104-197), drawn
         with NumPy from ``seed`` in evo_tpu's order (pies, mus, W), so Theta^0
         is the same as evo_tpu's.  Pass ``y_host`` (the flat [N, D] host
-        data, NaN marking missing entries) to skip the device-to-host copy.
-        On incomplete data the mean is normalized by N and sigma2 taken over
-        the observed entries (reference sssc.py:146-153)."""
-        check_single_process()
-        y, m = host_data(data, self.D, y_host)
-        N = y.shape[0]
-        if data.incomplete:
-            y_mean = (y * m).sum(0) / N
-            sigma2 = (((y - y_mean) * m) ** 2).sum() / m.sum() + 0.001
+        data, NaN marking missing entries) to skip the device-to-host copy
+        (this rank's rows under a process group).  On incomplete data the
+        mean is normalized by N and sigma2 taken over the observed entries
+        (reference sssc.py:146-153).  Under a group of several ranks the
+        statistics are summed over the ranks (``global_init_stats``), so
+        that every rank draws the same Theta^0."""
+        if distributed.rank_world()[1] > 1:
+            # Theta^0 from global sums, the same on every rank (evo_tpu
+            # sssc.py:118-131)
+            N, y_mean, ss_resid, m_sum = distributed.global_init_stats(data, y_host, self.D)
+            if data.incomplete:
+                sigma2 = ss_resid / m_sum + 0.001
+            else:
+                # np.cov's ddof=1, as below
+                sigma2 = ss_resid / (N - 1.0) / self.D + 0.001
         else:
-            y_mean = y.mean(0)
-            # mean per-dimension variance, np.cov's ddof=1 (sssc.py:150-160)
-            sigma2 = float(np.var(y, axis=0, ddof=1).mean()) + 0.001
+            y, m = host_data(data, self.D, y_host)
+            N = y.shape[0]
+            if data.incomplete:
+                y_mean = (y * m).sum(0) / N
+                sigma2 = (((y - y_mean) * m) ** 2).sum() / m.sum() + 0.001
+            else:
+                y_mean = y.mean(0)
+                # mean per-dimension variance, np.cov's ddof=1 (sssc.py:150-160)
+                sigma2 = float(np.var(y, axis=0, ddof=1).mean()) + 0.001
         return self._finish_init(data, y_mean, sigma2, seed)
 
     def _finish_init(self, data: Data, y_mean, sigma2, seed) -> SSSCParams:
@@ -286,18 +304,25 @@ class SSSC:
 
     # ------------------------------------------------------------ precompute
 
-    def _precompute(self, p: SSSCParams, data: Data) -> dict:
+    # the data sums of _precompute that an epoch sums over the ranks
+    DATA_SUMS = ("N", "sum_d")
+
+    def _precompute(self, p: SSSCParams, data: Data, sums: dict = None) -> dict:
         """State-independent terms (reference sssc.py:329-366); on incomplete
-        data ljc counts the observed entries (evo_tpu sssc.py:249-253)."""
+        data ljc counts the observed entries (evo_tpu sssc.py:249-253).
+        ``sums`` (``DATA_SUMS`` over every rank) replaces this rank's."""
         dt = p.W.dtype
-        valid = data.row_valid
-        N = valid.sum().to(dt)
+        if sums is None:
+            valid = data.row_valid
+            N = valid.sum().to(dt)
+            sum_d = ((data.x_infr.to(dt) * valid[..., None].to(dt)).sum() if data.incomplete
+                     else N * self.D)
+        else:
+            N, sum_d = sums["N"], sums["sum_d"]
         log1mp = torch.log(1.0 - p.pies).sum()
         if data.incomplete:
-            sum_d = (data.x_infr.to(dt) * valid[..., None].to(dt)).sum()
             ljc = log1mp + (-math.log(2 * math.pi) - torch.log(p.sigma2)) * sum_d / N / 2
         else:
-            sum_d = N * self.D
             ljc = (log1mp - self.D / 2 * math.log(2 * math.pi)
                    - 0.5 * self.D * torch.log(p.sigma2))
         return dict(sigma2_inv=1.0 / p.sigma2, pil_bar=torch.log(p.pies / (1.0 - p.pies)),
@@ -306,9 +331,10 @@ class SSSC:
     # ---------------------------------------------------------------- E-step
 
     def _estep_block(self, generator, ss_b, G_b, Wty_b, y2_b, valid_b, params, pre,
-                     cfg: EAConfig, lpj_fn):
+                     cfg: EAConfig, lpj_fn, rows=None):
         """Evolutionary E-step of one block [B, ...] (mirrors BSC's), the
-        lpj by ``lpj_fn`` (the kernel's or the wide path's).  Returns (ss2,
+        lpj by ``lpj_fn`` (the kernel's or the wide path's), the EA's draws
+        those of the global block's ``rows`` (see BSC's).  Returns (ss2,
         lpj2, n_uni [B], n_sub [B], reset counts [3])."""
 
         def lpj_block(states):
@@ -322,7 +348,7 @@ class SSSC:
             zeros = torch.zeros(ss_b.shape[0], dtype=torch.int64, device=ss_b.device)
             return ss_b, lpj_K, zeros, zeros, counts
         children, child_lpj, new_unique, child_lpj_raw, aux = evolve_states_block(
-            ss_b, lpj_K, lpj_block, cfg, pre["piH"], generator)
+            ss_b, lpj_K, lpj_block, cfg, pre["piH"], generator, rows=rows)
         ss2, lpj2, n_uni, n_sub, _ = merge_states(cfg, ss_b, lpj_K, children, child_lpj,
                                                   new_unique, child_lpj_raw)
         return ss2, lpj2, n_uni, n_sub, counts + sum(aux)
@@ -340,11 +366,14 @@ class SSSC:
         incomplete data its W update reads the reconstruction, and its
         sigma2 update the observed entries of the original y.
         ``generator`` (on the data's device) drives every random draw of
-        the EA."""
+        the EA; under a process group every rank passes the same one.
+        There the statistics, counters and F are summed over the ranks in
+        one all_reduce after the blocks; without a group nothing is issued."""
         check_em_step(data, do_reconstruction)
         lpj_fn, suffstat_fn = self._lpj_fns(data)
         params = self.check_params(params)
         pre = self._precompute(params, data)
+        rows = distributed.block_rows(data.y.shape[1])
         dt, dev, H = params.W.dtype, params.W.device, self.H
         acc = {k: torch.zeros((H, H), dtype=dt, device=dev)
                for k in ("xpt_ss", "xpt_szsz", "s_sz_outer", "sz_sz_outer")}
@@ -368,7 +397,7 @@ class SSSC:
             if cfg.packed_states:
                 ss_b = unpack_bits_lane(ss_b, H).to(torch.int8)
             ss2, lpj2, n_uni, n_sub, counts = self._estep_block(
-                generator, ss_b, G_b, Wty_b, y2_b, valid_b, params, pre, cfg, lpj_fn)
+                generator, ss_b, G_b, Wty_b, y2_b, valid_b, params, pre, cfg, lpj_fn, rows)
             if cfg.allzero:  # the permanent all-zero state (evo_tpu sssc.py:467-469)
                 lpj2 = torch.cat([-0.5 * pre["sigma2_inv"] * y2_b[:, None], lpj2], 1)
             vf = valid_b.to(dt)
@@ -397,11 +426,13 @@ class SSSC:
             ss_all[i] = pack_bits_lane(ss2) if cfg.packed_states else ss2
             lpj_all[i] = lpj2
 
+        pre, acc, tot = sum_over_ranks(self, params, data, pre, acc,
+                                       dict(Fsum=Fsum, nuni=nuni, nsub=nsub, resets=resets))
         new_params, guards = self._m_step_finalize(params, acc, pre, data.incomplete, cfg)
-        N = pre["N"]
+        N, resets = pre["N"], tot["resets"]
         zero = torch.zeros((), dtype=torch.int64, device=dev)
         stats = StepStats(
-            F=pre["ljc"] + Fsum / N, S_nunique=nuni / N, S_sub=nsub / N,
+            F=pre["ljc"] + tot["Fsum"] / N, S_nunique=tot["nuni"] / N, S_sub=tot["nsub"] / N,
             n_reset_nan=resets[0], n_reset_small=resets[1], n_reset_inf=resets[2],
             n_guard_sigma_floor=zero, **guards)
         return new_params, EState(ss=ss_all, lpj=lpj_all), stats, y_rec_all
@@ -469,7 +500,8 @@ class SSSC:
 
     def exact_free_energy(self, params: SSSCParams, data: Data) -> torch.Tensor:
         """Exact log-likelihood by enumerating all 2^H states (small H): the
-        correctness oracle (reference _models.py:334-451)."""
+        correctness oracle (reference _models.py:334-451), over every rank
+        under a process group."""
         lpj_fn = self._lpj_fns(data)[0]
         params = self.check_params(params)
         pre = self._precompute(params, data)
@@ -483,10 +515,13 @@ class SSSC:
                             pre["pil_bar"], pre["sigma2_inv"])
             lpj, _ = reset_lpj(lpj)
             Fsum += (shifted_logsumexp(lpj) * data.row_valid[i].to(lpj.dtype)).sum()
-        return pre["ljc"] + Fsum / pre["N"]
+        return total_free_energy(self, params, data, pre, Fsum)
 
     def free_energy(self, params: SSSCParams, estate: EState, data: Data) -> torch.Tensor:
-        """Truncated free energy from the stored lpj."""
-        pre = self._precompute(self.check_params(params), data)
+        """Truncated free energy from the stored lpj (over every rank under
+        a process group)."""
+        params = self.check_params(params)
+        pre = self._precompute(params, data)
         lpj = estate.lpj.reshape(-1, estate.lpj.shape[-1])
-        return free_energy_from_lpj(lpj, pre["ljc"], data.row_valid.reshape(-1))
+        Fsum = (shifted_logsumexp(lpj) * data.row_valid.reshape(-1).to(lpj.dtype)).sum()
+        return total_free_energy(self, params, data, pre, Fsum)

@@ -21,7 +21,13 @@ resume under other flags fails loudly.  The keys:
 A file written by either package loads in the other with equal params,
 states, epoch and fingerprint.  evo_tpu's trainer saves its unfolded
 ``key(seed)``, which reads back here as the seed; after a resume across
-packages each draws from its own generator.  Single process only.
+packages each draws from its own generator.
+
+Under a process group the file holds the global layout (each block's rows
+[rank 0 | rank 1 | ...], as evo_tpu's multi-process checkpoint): every
+rank takes part in gathering the states, rank 0 writes, and every rank
+waits at a barrier; every rank reads the file and keeps its own rows.  So a
+file written by K ranks loads in one process, in evo_tpu, or in K ranks.
 """
 
 from __future__ import annotations
@@ -34,8 +40,8 @@ from typing import Any, Tuple
 import numpy as np
 import torch
 
-from evo_tpu_torch.models.base import check_single_process
 from evo_tpu_torch.ops.bitpack import pack_bits_lane_host, pack_bits_u8, unpack_bits_u8
+from evo_tpu_torch.parallel import distributed
 from evo_tpu_torch.variational.state_init import EState
 
 _SEP = "/"
@@ -51,8 +57,9 @@ def _fingerprint(cfg, model, data) -> dict:
     if model is not None:
         fp["model"] = {"class": type(model).__name__, "D": int(model.D), "H": int(model.H),
                        "to_learn": sorted(model.to_learn)}
-    if data is not None:
-        fp["data"] = {"shape": [int(s) for s in data.y.shape],
+    if data is not None:  # the global shape: B of every rank together
+        nb, B, D = data.y.shape
+        fp["data"] = {"shape": [int(nb), int(B) * distributed.rank_world()[1], int(D)],
                       "incomplete": bool(data.incomplete)}
     return fp
 
@@ -91,8 +98,9 @@ def save_checkpoint(path: str, params: Any, estate: EState, epoch: int, seed: in
                     cfg=None, model=None, data=None) -> None:
     """Write the checkpoint; pass cfg, model and data for the fingerprint
     that ``load_checkpoint`` checks.  ``seed`` is the run's uint32 seed.
-    int8 states are packed on their own device, a block at a time."""
-    check_single_process("checkpoint")
+    int8 states are packed on their own device.  Under a process group
+    every rank must call it: the states are gathered into the global
+    layout, rank 0 writes, and every rank returns once the file is there."""
     if not 0 <= seed < 2**32:
         raise ValueError(f"seed {seed} is not a uint32")
     blobs = {f"params{_SEP}{f.name}": _host(getattr(params, f.name))
@@ -101,16 +109,19 @@ def save_checkpoint(path: str, params: Any, estate: EState, epoch: int, seed: in
     if fp:
         blobs["fingerprint_json"] = np.asarray(json.dumps(fp))
     if estate.ss.dtype == torch.uint8:  # lane-major packed (EAConfig.packed_states)
-        blobs["estate_ss_packed"] = _host(estate.ss)
+        blobs["estate_ss_packed"] = distributed.gather_global(estate.ss)
         blobs["estate_ss_H"] = np.asarray(-1)
         blobs["packed_format"] = np.asarray("lane")
     else:
-        blobs["estate_ss_packed"] = np.stack([_host(pack_bits_u8(b)) for b in estate.ss])
+        blobs["estate_ss_packed"] = distributed.gather_global(
+            torch.stack([pack_bits_u8(b) for b in estate.ss]))
         blobs["estate_ss_H"] = np.asarray(estate.ss.shape[-1])
-    blobs["estate_lpj"] = _host(estate.lpj)
+    blobs["estate_lpj"] = distributed.gather_global(estate.lpj)
     blobs["epoch"] = np.asarray(epoch)
     blobs["rng_key"] = np.asarray([0, seed], dtype=np.uint32)
-    _atomic_savez(path, blobs)
+    if distributed.rank_world()[0] == 0:
+        _atomic_savez(path, blobs)
+    distributed.barrier()
 
 
 def load_checkpoint(path: str, params_like: Any, cfg=None, model=None,
@@ -121,8 +132,8 @@ def load_checkpoint(path: str, params_like: Any, cfg=None, model=None,
     With cfg/model/data (as given to ``save_checkpoint``) the file's
     fingerprint is checked; a file without one skips the check.  States
     packed byte-major (``packed_format`` other than "lane") become
-    lane-major."""
-    check_single_process("checkpoint")
+    lane-major.  Under a process group each rank keeps its own rows of the
+    states and lpj."""
     fields = dataclasses.fields(params_like)
     dev = getattr(params_like, fields[0].name).device
     with np.load(path) as z:
@@ -132,7 +143,7 @@ def load_checkpoint(path: str, params_like: Any, cfg=None, model=None,
         params = type(params_like)(**{
             f.name: torch.from_numpy(z[f"params{_SEP}{f.name}"]).to(dev) for f in fields})
         H = int(z["estate_ss_H"])
-        packed = np.asarray(z["estate_ss_packed"])
+        packed = distributed.local_rows(torch.from_numpy(z["estate_ss_packed"])).numpy()
         if H == -1:
             fmt = str(z["packed_format"]) if "packed_format" in z else "byte"
             if fmt != "lane":
@@ -144,7 +155,8 @@ def load_checkpoint(path: str, params_like: Any, cfg=None, model=None,
         else:
             ss = torch.stack([unpack_bits_u8(torch.from_numpy(b).to(dev), H).to(torch.int8)
                               for b in packed])
-        estate = EState(ss=ss, lpj=torch.from_numpy(np.asarray(z["estate_lpj"])).to(dev))
+        lpj = distributed.local_rows(torch.from_numpy(z["estate_lpj"]))
+        estate = EState(ss=ss, lpj=lpj.to(dev))
         epoch = int(z["epoch"])
         hi, lo = (int(w) for w in np.asarray(z["rng_key"], dtype=np.uint32))
     return params, estate, epoch, hi << 32 | lo

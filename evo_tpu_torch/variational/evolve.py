@@ -18,12 +18,15 @@ packed right after mutation.
 
 The random numbers are drawn per generation from ``generator``, or taken
 from ``draws`` (one (selection gumbel, mutation noise) pair per generation)
-so that a test can feed in what evo_tpu drew.
+so that a test can feed in what evo_tpu drew.  With ``rows`` = (offset,
+B_global) the block is a rank's share of a global block: the draws are
+made for all B_global datapoints and rows offset ... offset + B kept, so a
+datapoint's draws do not depend on how many ranks share its block.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Sequence
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 
@@ -50,6 +53,7 @@ def evolve_states_block(
     generator: Optional[torch.Generator] = None,
     ss_dkeys: Optional[torch.Tensor] = None,  # [B, S, W] dedup keys of ss_b
     draws: Optional[Sequence] = None,
+    rows: Optional[Tuple[int, int]] = None,  # (offset, B_global) of ss_b's rows
 ):
     """Returns (children [B, T, H or ceil(H/8)] like ss_b, child_lpj [B, T]
     with -inf at duplicates, new_unique [B, T], child_lpj_raw [B, T],
@@ -72,15 +76,21 @@ def evolve_states_block(
         seen_keys = torch.cat([zero_key, seen_keys], dim=1)
         seen_valid = torch.cat([torch.ones_like(seen_valid[:, :1]), seen_valid], dim=1)
 
+    r0, Bg = (0, B) if rows is None else rows
+
+    def own_rows(a):
+        return a if rows is None else a[r0:r0 + B]
+
     pool_states, pool_lpj = ss_b, lpj_b
     out_states, out_lpj, out_new, out_raw, aux_list = [], [], [], [], []
     for g in range(cfg.n_generations):
         n_pool = pool_states.shape[1]
         n_par = min(n_pool, cfg.n_parents)
         if draws is None:
-            gumbel = draw_gumbel((B, n_pool), generator, dev, pool_lpj.dtype)
-            noise = draw_noise(cfg.mutation_algorithm, B, n_par, cfg.n_children,
+            gumbel = own_rows(draw_gumbel((Bg, n_pool), generator, dev, pool_lpj.dtype))
+            noise = draw_noise(cfg.mutation_algorithm, Bg, n_par, cfg.n_children,
                                cfg.H_mut, generator, dev)
+            noise = tuple(map(own_rows, noise)) if isinstance(noise, tuple) else own_rows(noise)
         else:
             gumbel, noise = draws[g]
         pidx = select_idx(cfg.parent_selection, pool_lpj, n_par, gumbel=gumbel)

@@ -26,7 +26,7 @@ from evo_tpu.models.bsc import BSC as JBSC, BSCParams as JParams
 from evo_tpu.utils.bars import generate_bars_dict
 from evo_tpu.variational.state_init import draw_initial_states as j_draw
 from evo_tpu.variational.state_init import init_states as j_init_states
-from evo_tpu_torch import BSC, SSSC, convert, init_states, make_data
+from evo_tpu_torch import BSC, convert, init_states, make_data
 from evo_tpu_torch.variational.state_init import draw_initial_states as t_draw
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -160,17 +160,6 @@ def test_check_params_matches_evo_tpu():
     got = BSC(D=7, H=5, device="cpu").check_params(convert.params_from_numpy(p, "cpu"))
     for f in ("W", "pi", "sigma", "pies"):
         np.testing.assert_array_equal(getattr(got, f).numpy(), np.asarray(getattr(want, f)))
-
-
-@pytest.mark.parametrize("model_cls", [BSC, SSSC])
-def test_standard_init_raises_under_several_processes(model_cls, monkeypatch):
-    """Theta^0 from global sums over processes is not ported: both models
-    refuse to initialize from the local rows alone."""
-    monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
-    monkeypatch.setattr(torch.distributed, "get_world_size", lambda *a, **k: 2)
-    data = make_data(np.random.default_rng(0).normal(size=(8, 4)), device="cpu")
-    with pytest.raises(NotImplementedError, match="multi-process"):
-        model_cls(D=4, H=3, device="cpu").standard_init(data)
 
 
 def test_entry_points_need_a_card_unless_cpu_is_asked(monkeypatch):

@@ -248,18 +248,6 @@ def test_checkpoint_fingerprint_rejects_changed_config(tmp_path):
     load_checkpoint(path2, params_like=params, cfg=cfg_mut, model=model, data=data)
 
 
-def test_checkpoint_is_single_process(tmp_path, monkeypatch):
-    model, data, cfg, estate, params = _bsc_run()
-    path = str(tmp_path / "ckpt.npz")
-    save_checkpoint(path, params, estate, epoch=1, seed=0)
-    monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
-    monkeypatch.setattr(torch.distributed, "get_world_size", lambda: 2)
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        save_checkpoint(path, params, estate, epoch=1, seed=0)
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        load_checkpoint(path, params_like=params)
-
-
 def _both_sides(kind, packed):
     """The same run in both packages: data, config, states and Theta^0."""
     N, H, D = 40, 6, 9
