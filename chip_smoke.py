@@ -102,7 +102,23 @@ Phases, one line each with its seconds:
                the no-group run bit for bit.  Per rank: ms per epoch and
                the all_reduce's ms per epoch (two processes sharing one
                card: no scaling figure), launch counts checked
- 22. compat    the reference's driver pattern (bars test, init_states,
+ 22. parallel_apps  the image apps over 2 ranks on the one card, each rank
+               started as torchrun starts one (RANK, WORLD_SIZE, LOCAL_RANK,
+               MASTER_ADDR and a free MASTER_PORT set; the group brought up
+               by init_distributed(backend="gloo") from them alone) and
+               running the apps' own build, epoch callback and EMTrainer on
+               its own rows: ES3C denoising at the CLI's --rescale 1.0
+               (N = 63,504, D = 25, H = 32, S = 20, sigma = 25; 1 + 2 epochs,
+               a merge at the first and the last) and ES3C inpainting on
+               phase 10's image and mask (N = 151,209 in one block padded to
+               151,210; 1 + 2 epochs, a merge every epoch), the merges on the
+               host of every rank after the reconstruction's gather; F per
+               epoch within rtol 2e-4 and the mean merge's PSNR within
+               0.05 dB of the same jobs in this process with pad_multiple=2,
+               2 lpj and 1 suffstat launches per rank and epoch; per rank the
+               ms per epoch, the all_reduce's, the gather's and the host
+               merge's, and the gap to this process's pad_multiple=1 run
+ 23. compat    the reference's driver pattern (bars test, init_states,
                standard_init, check_params, step) through
                evo_tpu_torch.compat: 15 steps, F rising, the compat's exact
                free energy equal to the core model's
@@ -133,13 +149,13 @@ CUDA graph, so the host's launch cost is left out).  Then a JSON line with
 the kernels' numbers and, last, the result line.
 
 Any failed check raises and the script exits non-zero, as does a worker
-of the parallel phase that fails or overruns its time limit (all of them
-are then killed); it also exits non-zero without a result when no CUDA
-card is present.  The whole run is under a self-enforced 600 s deadline,
+of the parallel or parallel_apps phase that fails or overruns its time
+limit (all of them are then killed); it also exits non-zero without a
+result when no CUDA card is present.  The whole run is under a self-enforced 600 s deadline,
 which also kills the workers.  It imports only evo_tpu_torch, torch and
 numpy (so it fails at once outside the repository), needs neither h5py nor
 matplotlib, writes only under the temporary directory, and starts no
-process but nvcc, nvidia-smi and the parallel phase's workers (two at
+process but nvcc, nvidia-smi and the two parallel phases' workers (two at
 most at a time, each under a wall-clock limit).
 """
 
@@ -148,6 +164,7 @@ import hashlib
 import json
 import multiprocessing
 import os
+import socket
 import subprocess
 import sys
 import tarfile
@@ -2090,6 +2107,19 @@ def one_process_run(model, data, cfg, estate, params, n_epochs, launches, expect
     return run
 
 
+def timed(fn, spans):
+    """``fn`` with each call's wall time in ms, between two
+    torch.cuda.synchronize, appended to the list ``spans``."""
+    def run(*args, **kwargs):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        spans.append(1e3 * (time.perf_counter() - t))
+        return out
+    return run
+
+
 def parallel_worker(tmp, rank, world, backend, jobs):
     """One rank of a data-parallel group on the card: for each job (the
     inputs of ``save_inputs`` and its epochs), this rank's rows through
@@ -2103,17 +2133,9 @@ def parallel_worker(tmp, rank, world, backend, jobs):
 
     init_distributed(backend=backend, rank=rank, world_size=world, device=DEVICE,
                      init_method="file://" + os.path.join(tmp, f"store-{backend}"))
-    plain_sums, ar_ms = distributed.allreduce_sums, []
-
-    def timed_sums(*dicts):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        out = plain_sums(*dicts)
-        torch.cuda.synchronize()
-        ar_ms.append(1e3 * (time.perf_counter() - t))
-        return out
-
-    distributed.allreduce_sums = timed_sums  # the models call it through the module
+    ar_ms = []
+    # the models call it through the module
+    distributed.allreduce_sums = timed(distributed.allreduce_sums, ar_ms)
     launches = Launches()
     for job in jobs:
         kind, n_epochs = job["kind"], job["epochs"]
@@ -2289,6 +2311,166 @@ def parallel(launches, primary):
     return total
 
 
+# parallel_apps: the image apps' jobs and their launches per epoch (the
+# denoising CLI at --rescale 1.0, a merge at the first and the last epoch;
+# inpainting on inpaint_data's image and mask, a merge every epoch)
+APP_JOBS = {"denoise": (["denoising", "es3c", "--rescale", "1.0", "--no_epochs", "3",
+                         "--merge_every", "3"], dict(sssc_lpj=2, sssc_suffstat=1)),
+            "inpaint": (["inpainting", "es3c", "--no_epochs", "3"],
+                        dict(sssc_lpj_masked=2, sssc_suffstat_masked=1))}
+
+
+def free_port():
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def app_inputs(job, inp=None):
+    """(args, clean image, corrupted image, x) of a parallel_apps job."""
+    args = images.get_args(APP_JOBS[job][0])
+    if job == "denoise":  # the synthetic 256 x 256 image without ./img/house.png
+        clean = images.get_image(args.clean_image, args.rescale)
+        return args, clean, images.add_noise(clean, args), None
+    clean, corrupted, _, _, _ = inp or inpaint_data()
+    return args, clean, corrupted, images.observed(corrupted, args)
+
+
+def app_run(job, launches, device, inp=None, pad_multiple=1, spans=None):
+    """A parallel_apps job through images.build (this process's rows, padded
+    to ``pad_multiple`` with no group), its epoch callback and EMTrainer
+    with a text log and host tracepoints: F per epoch, ms per epoch (the
+    em_step spans), (epoch, callback ms, mean-merge PSNR) of each merge, the
+    callback's route, N, the block size and the launch counts of the
+    epochs; the lists of ``spans`` are emptied just before the epochs and
+    returned with the result."""
+    args, clean, corrupted, x_keep = app_inputs(job, inp)
+    b = images.build(args, clean, corrupted, x_keep, device, pad_multiple=pad_multiple)
+    out = dict(F=[], merges=[], N=b["N"], B=int(b["data"].y.shape[1]))
+    with tempfile.TemporaryDirectory() as tmp:
+        dlog = metrics_log(tmp)
+        callback, last = images.make_epoch_callback(args, b, clean, dlog, device)
+        out["route"] = last["route"]
+
+        def record(epoch, F, **kw):
+            out["F"].append(F)
+            last.pop("psnr", None)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            callback(epoch=epoch, F=F, **kw)
+            torch.cuda.synchronize()
+            if "psnr" in last:
+                out["merges"].append((epoch, 1e3 * (time.perf_counter() - t), last["psnr"]))
+
+        tr = EMTrainer(b["model"], b["cfg"], b["params"], b["estate"], b["data"], dlog, tmp,
+                       seed=args.seed + 1, tracefile="trace-%04d.txt",
+                       **chunking_kwargs(args, theta_append=False, auto_overwrite=False))
+        for v in (spans or {}).values():
+            del v[:]
+        launches.reset()
+        tr.run(args.no_epochs, reconstruct_at=b["reconstruct_at"], epoch_callback=record)
+        out["counts"] = launches.counts()
+        dlog.close()
+        out["ms"] = [1e3 * x for x in trace_spans(tmp, "em_step")]
+    out.update({k: list(v) for k, v in (spans or {}).items()})
+    return out
+
+
+def apps_worker(tmp, rank, world, port):
+    """One rank of parallel_apps, started as torchrun starts one: its
+    variables set, the group brought up by init_distributed(backend="gloo")
+    from them (no rank, world size or address given), the app's device from
+    platform_device(); then each
+    APP_JOBS job through app_run on the card, with the all_reduce, the
+    reconstruction's gather (full_readback) and the host merge timed;
+    results to <tmp>/apps-rank<rank>.json."""
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank),
+                      LOCAL_WORLD_SIZE=str(world), MASTER_ADDR="127.0.0.1",
+                      MASTER_PORT=str(port))
+    from evo_tpu_torch.apps.common import platform_device
+    from evo_tpu_torch.parallel import distributed, init_distributed
+
+    got = init_distributed(backend="gloo", device=DEVICE)
+    if got != (rank, world):
+        raise AssertionError(f"init_distributed() from the environment gave {got}")
+    device = platform_device()
+    spans = dict(allreduce_ms=[], gather_ms=[], merge_ms=[])
+    distributed.allreduce_sums = timed(distributed.allreduce_sums, spans["allreduce_ms"])
+    images.full_readback = timed(images.full_readback, spans["gather_ms"])
+    images.host_merge = timed(images.host_merge, spans["merge_ms"])
+    launches = Launches()
+    res = {job: app_run(job, launches, device, spans=spans) for job in APP_JOBS}
+    with open(os.path.join(tmp, f"apps-rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    torch.distributed.destroy_process_group()
+
+
+def parallel_apps(launches, inp):
+    """The image apps over 2 ranks on the one card, started as torchrun
+    starts them (apps_worker): ES3C denoising (N = 63,504) and inpainting
+    (N = 151,209, one block padded to 151,210), 1 + 2 epochs each, against
+    the same jobs in this process with no group and pad_multiple=2 (the
+    same padded rows; merged on the card): F per epoch within rtol 2e-4,
+    the mean merge's PSNR within 0.05 dB at every merge, the launch counts
+    of each rank; the gap to this process's run with pad_multiple=1 is
+    printed only (the card's draws depend on the tensors' sizes).  Returns
+    the workers' launch counts."""
+    dev, one, total = torch.device(DEVICE), {}, {}
+    for job, (_, expect) in APP_JOBS.items():
+        one[job] = app_run(job, launches, dev, inp, pad_multiple=2)
+        check_counts(f"{job} one process", one[job]["counts"],
+                     {k: 3 * v for k, v in expect.items()})
+        if one[job]["B"] == one[job]["N"]:
+            one[job]["pad1"] = None  # nothing padded: pad_multiple=1 is the same run
+        else:
+            one[job]["pad1"] = app_run(job, launches, dev, inp)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        port = free_port()
+        spawn(apps_worker, [(tmp, r, 2, port) for r in range(2)])
+        say(f"2 gloo ranks from torchrun's variables on the one card (two processes sharing "
+            f"it, not a scaling figure): {time.perf_counter() - t0:.1f} s with their start")
+        ranks = []
+        for r in range(2):
+            with open(os.path.join(tmp, f"apps-rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    for job, (_, expect) in APP_JOBS.items():
+        o, rs = one[job], [r[job] for r in ranks]
+        label = f"{job} N={o['N']} (B={o['B']}, {rs[0]['B']} a rank)"
+        for rank, r in enumerate(rs):
+            if r["route"] != "full":
+                raise AssertionError(f"{label} rank {rank}: merge route {r['route']}")
+            check_counts(f"{label} rank {rank}", r["counts"],
+                         {k: 3 * v for k, v in expect.items()})
+            add_counts(total, r["counts"])
+            say(f"{label} rank {rank}: ms per epoch {[round(m, 1) for m in r['ms']]} (first "
+                f"is warm-up), all_reduce ms {[round(m, 2) for m in r['allreduce_ms']]}; per "
+                f"merge epoch {[e for e, _, _ in r['merges']]}: gather ms "
+                f"{[round(m, 1) for m in r['gather_ms']]}, host merge ms "
+                f"{[round(m, 1) for m in r['merge_ms']]}, callback ms "
+                f"{[round(m, 1) for _, m, _ in r['merges']]} on {CARD['smi']}")
+        psnr2, psnr_r1, psnr1 = ([p for _, _, p in r["merges"]] for r in (*rs, o))
+        if rs[0]["F"] != rs[1]["F"] or psnr2 != psnr_r1:
+            raise AssertionError(f"{label}: the ranks' F or PSNR differ")
+        say(f"{label}: F per epoch, 2 ranks {rs[0]['F']}; one process, pad_multiple=2 "
+            f"{o['F']}; PSNR per merge {[round(p, 4) for p in psnr2]} dB against "
+            f"{[round(p, 4) for p in psnr1]} dB (merge route {o['route']!r}, ms per epoch "
+            f"{[round(m, 1) for m in o['ms']]})")
+        if not np.allclose(rs[0]["F"], o["F"], rtol=2e-4, atol=0):
+            raise AssertionError(f"{label}: F of the 2 ranks is not within rtol 2e-4")
+        if [e for e, _, _ in rs[0]["merges"]] != [e for e, _, _ in o["merges"]] or not all(
+                abs(a - b) <= 0.05 for a, b in zip(psnr2, psnr1)):
+            raise AssertionError(f"{label}: the mean merge's PSNR is not within 0.05 dB")
+        p1 = o["pad1"]
+        if p1 is None:
+            say(f"{label}: pad_multiple=1 pads nothing here, so it is the same run (gap 0)")
+        else:
+            say(f"{label}: gap to one process with pad_multiple=1 (printed, not checked): "
+                f"F {[float(f'{a - b:.4g}') for a, b in zip(rs[0]['F'], p1['F'])]}, PSNR "
+                f"{[round(a - p, 4) for a, (_, _, p) in zip(psnr2, p1['merges'])]} dB")
+    return total
+
+
 def compat(launches):
     """The reference driver pattern (tests/test_compat.py:11-33: the bars
     test, init_states, standard_init, check_params, step) on the card
@@ -2344,10 +2526,13 @@ class Launches:
         for f, attr in self.fns.values():
             setattr(f, attr, 0)
 
+    def counts(self):
+        return {k: getattr(f, attr) for k, (f, attr) in self.fns.items()}
+
     def expect(self, **want):
         """Check every count: the kernels not named must not have run."""
         want = {k: want.get(k, 0) for k in self.fns}
-        got = {k: getattr(f, attr) for k, (f, attr) in self.fns.items()}
+        got = self.counts()
         if got != want:
             raise AssertionError(f"kernel launches {got}, expected {want}")
         return got
@@ -2438,6 +2623,8 @@ def main():
     with Phase("parallel"):
         par = parallel(launches, primary)
         del primary
+    with Phase("parallel_apps"):
+        par_apps = parallel_apps(launches, inp)
     with Phase("bars_app"):
         bars_app(launches)
     apps = {}
@@ -2453,8 +2640,8 @@ def main():
     with Phase("compat"):
         add_counts(apps, compat(launches))
 
-    for k in ("lpj", "suffstat", "sssc_lpj", "sssc_suffstat"):  # the workers' launches
-        apps[k] += par.get(k, 0)
+    add_counts(apps, par)  # the workers' launches
+    add_counts(apps, par_apps)
     kernels = [
         dict(name="bsc_lpj", route="cuda", source="evo_tpu_torch/csrc/bsc_lpj.cu",
              replaces="evo_tpu/ops/pallas_lpj.py:97", launches=counts["lpj"] + apps["lpj"],
@@ -2474,7 +2661,7 @@ def main():
              launches=packed_counts["suffstat_packed"], library_ms=None,
              **rows["bsc_suffstat_packed"]),
         # launches: the complete-data ES3C paths' runs, the app phases and
-        # parallel's workers together
+        # the workers of parallel and parallel_apps together
         dict(name="sssc_lpj", route="cuda", source="evo_tpu_torch/csrc/sssc_lpj.cu",
              replaces="evo_tpu/ops/pallas_sssc.py:676",
              launches=fl["sssc_lpj"] + prim["sssc_lpj"] + apps["sssc_lpj"], library_ms=None,
@@ -2483,6 +2670,7 @@ def main():
              replaces="evo_tpu/ops/pallas_sssc.py:1015",
              launches=fl["sssc_suffstat"] + prim["sssc_suffstat"] + apps["sssc_suffstat"],
              library_ms=None, **rows["sssc_suffstat"]),
+        # launches: sssc_inpaint, inpaint_app and parallel_apps' workers
         dict(name="sssc_lpj_masked", route="cuda", source="evo_tpu_torch/csrc/sssc_lpj_masked.cu",
              replaces="evo_tpu/ops/pallas_sssc.py:606",
              launches=inpaint["sssc_lpj_masked"] + apps["sssc_lpj_masked"],

@@ -15,9 +15,11 @@ import torch
 from evo_tpu_torch.apps.common import (
     chunking_kwargs,
     experiment_parser,
+    is_writer,
     output_parser,
     params_to_dict,
     platform_device,
+    rank_pieces,
     restore_stdout,
     setup_experiment,
     variational_parser,
@@ -25,11 +27,9 @@ from evo_tpu_torch.apps.common import (
 )
 from evo_tpu_torch.apps.training import EMTrainer
 from evo_tpu_torch.apps.viz import BarsVisualizer
-from evo_tpu_torch.models.base import make_data
 from evo_tpu_torch.models.bsc import BSC, BSCParams
 from evo_tpu_torch.models.sssc import SSSC, SSSCParams
 from evo_tpu_torch.utils.bars import generate_bars_dict
-from evo_tpu_torch.variational.state_init import init_states
 
 
 def build_theta_gen(algo: str, H: int, args, device):
@@ -57,10 +57,11 @@ def run(args) -> dict:
         restore_stdout()
 
 
-def build(args, device) -> dict:
-    """The bars test's pieces on ``device``: model, theta_gen, Y (host),
-    data, Theta^0 (params), cfg, estate, and L_gen (the exact likelihood of
-    theta_gen for H <= 10, else None)."""
+def build(args, device, pad_multiple: int = 1) -> dict:
+    """The bars test's pieces on ``device``: model, theta_gen, Y (host, all
+    rows), this rank's data, Theta^0 (params), cfg and estate
+    (``rank_pieces``), and L_gen (the exact likelihood of theta_gen for
+    H <= 10, else None)."""
     H = args.H
     D = (H // 2) ** 2
     model = {"ebsc": BSC, "es3c": SSSC}[args.algo](D=D, H=H, device=device)
@@ -68,17 +69,9 @@ def build(args, device) -> dict:
     gen = model.generate_data(theta_gen, args.no_data_points,
                               torch.Generator(device=device).manual_seed(args.seed))
     Y = gen["y"].cpu().numpy()
-    data = make_data(Y, n_blocks=args.n_blocks, device=device)
-    params = model.standard_init(data, seed=args.seed, y_host=Y)
-    N_padded = data.y.shape[0] * data.y.shape[1]  # includes padding rows
-    cfg, estate = init_states(
-        N=N_padded, S=args.Ksize, H=H, parent_selection=args.parent_selection,
-        mutation_algorithm=args.mutation_algorithm, no_parents=args.no_parents,
-        no_children=args.no_children, no_generations=args.no_generations,
-        bitflip_prob=args.bitflip_prob, n_blocks=args.n_blocks, seed=args.seed, device=device)
-    L_gen = float(model.exact_free_energy(theta_gen, data)) if H <= 10 else None
-    return dict(model=model, theta_gen=theta_gen, Y=Y, data=data, params=params, cfg=cfg,
-                estate=estate, L_gen=L_gen)
+    b = rank_pieces(model, Y, args, device, pad_multiple=pad_multiple)
+    L_gen = float(model.exact_free_energy(theta_gen, b["data"])) if H <= 10 else None
+    return dict(b, model=model, theta_gen=theta_gen, Y=Y, L_gen=L_gen)
 
 
 def _run(args, device, dlog, outdir) -> dict:
@@ -95,20 +88,23 @@ def _run(args, device, dlog, outdir) -> dict:
     else:
         print(f"Did not compute exact likelihood (too expensive for H={args.H})")
 
-    visualizer = BarsVisualizer(viz_every=args.viz_every or args.no_epochs,
-                                output_directory=outdir,
-                                theta_gen_W=params_to_dict(b["theta_gen"])["W"],
-                                L_gen=L_gen, gif_framerate=args.gif_framerate)
+    visualizer, callback = None, None
+    if is_writer():
+        visualizer = BarsVisualizer(viz_every=args.viz_every or args.no_epochs,
+                                    output_directory=outdir,
+                                    theta_gen_W=params_to_dict(b["theta_gen"])["W"],
+                                    L_gen=L_gen, gif_framerate=args.gif_framerate)
+
+        def callback(epoch, F, params, **kw):
+            visualizer.process_epoch(epoch=epoch, F=F, params=params)
     trainer = EMTrainer(b["model"], b["cfg"], b["params"], b["estate"], b["data"], dlog, outdir,
                         seed=args.seed + 1, checkpoint_every=args.checkpoint_every,
                         resume=args.resume, tracefile=getattr(args, "tracefile", None),
                         device_trace_every=getattr(args, "device_trace_every", 0),
                         **chunking_kwargs(args))
-    params, estate, stats = trainer.run(
-        args.no_epochs,
-        epoch_callback=lambda epoch, F, params, **kw: visualizer.process_epoch(
-            epoch=epoch, F=F, params=params))
-    visualizer.finalize()
+    params, estate, stats = trainer.run(args.no_epochs, epoch_callback=callback)
+    if visualizer is not None:
+        visualizer.finalize()
     print("Finished")
     return {"F": float(stats.F), "L_gen": L_gen, "params": params, "outdir": outdir}
 

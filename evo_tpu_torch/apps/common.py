@@ -1,8 +1,13 @@
 """Shared experiment scaffolding of the apps (counterpart:
-evo_tpu/apps/common.py): the device choice, a timestamped output
-directory, training.h5 through DataLog/StoreToH5, the stdout tee to
-terminal.txt, and the argparse parent parsers with evo_tpu's flag names and
-defaults."""
+evo_tpu/apps/common.py): the device choice, this rank's data, Theta^0 and
+states, a timestamped output directory, training.h5 through
+DataLog/StoreToH5, the stdout tee to terminal.txt, and the argparse parent
+parsers with evo_tpu's flag names and defaults.
+
+Under torchrun (``torchrun --nproc_per_node=K -m
+evo_tpu_torch.apps.<app>``) every rank makes the whole host data from the
+same seed and keeps its own rows of every block (``rank_pieces``); rank 0
+alone writes the output directory."""
 
 from __future__ import annotations
 
@@ -17,8 +22,11 @@ import warnings
 import numpy as np
 import torch
 
+from evo_tpu_torch.models.base import make_data
 from evo_tpu_torch.parallel import distributed
+from evo_tpu_torch.parallel.mesh import make_mesh, shard_blocked
 from evo_tpu_torch.utils.datalog import DataLog, StoreToH5
+from evo_tpu_torch.variational.state_init import init_states
 
 
 def platform_device() -> torch.device:
@@ -39,6 +47,49 @@ def platform_device() -> torch.device:
     if int(os.environ.get("WORLD_SIZE", "1")) > 1:
         distributed.init_distributed(device=dev)
     return dev
+
+
+def is_writer() -> bool:
+    """Whether this process writes the run's files: rank 0 of a process
+    group, or the only process."""
+    return distributed.rank_world()[0] == 0
+
+
+def rank_pieces(model, Y, args, device, x=None, pad_multiple: int = 1) -> dict:
+    """This rank's data, Theta^0 (params), cfg and estate for ``model`` on
+    the whole host data Y [N, D] (NaN marking missing entries) and x (the
+    entries a reconstruction keeps; None: the observed ones), from
+    args.seed, args.n_blocks, args.Ksize and the EA flags of
+    ``variational_parser``.
+
+    The rows are padded to a multiple of n_blocks * lcm(pad_multiple, K)
+    for K ranks, and each rank keeps its rows of every block: block b of
+    rank p holds the global rows b*B + p*B_local ... b*B + (p+1)*B_local,
+    the layout of parallel/distributed.py.  So a K-rank run's blocked data
+    is, row for row, a one-rank run's with pad_multiple K; the padding rows
+    (row_valid false) sit at the end of the last block, with the last
+    ranks.  Theta^0 comes from the sums over every rank's valid rows; the
+    states are drawn for the global padded N and each rank keeps its rows.
+    With one process and pad_multiple 1 these are make_data, standard_init
+    and init_states of the whole data."""
+    world = distributed.rank_world()[1]
+    full = make_data(Y, x=x, n_blocks=args.n_blocks, pad_multiple=int(np.lcm(pad_multiple, world)),
+                     device="cpu" if world > 1 else device)
+    if world == 1:
+        data, y_host = full, Y
+    else:
+        rows = distributed.local_rows(torch.arange(full.row_valid.numel()).reshape(
+            full.row_valid.shape)).reshape(-1).numpy()
+        data, y_host = shard_blocked(full, make_mesh(device)), np.asarray(Y)[rows[rows < len(Y)]]
+    params = model.standard_init(data, seed=args.seed, y_host=y_host)
+    cfg, estate = init_states(
+        N=full.row_valid.numel(), S=args.Ksize, H=model.H,
+        parent_selection=args.parent_selection, mutation_algorithm=args.mutation_algorithm,
+        no_parents=args.no_parents, no_children=args.no_children,
+        no_generations=args.no_generations, bitflip_prob=args.bitflip_prob,
+        n_blocks=args.n_blocks, seed=args.seed, device=device)
+    return dict(data=data, params=params, cfg=cfg,
+                estate=distributed.distribute_estate(estate, device))
 
 
 def merge_dict(*dicts):
@@ -222,23 +273,30 @@ def chunking_kwargs(args, theta_append: bool = True, auto_overwrite: bool = True
 def setup_experiment(args, name: str):
     """Create the output directory, the DataLog with an asynchronous
     training.h5 handler, and the stdout tee (``restore_stdout`` ends it);
-    returns (dlog, output_directory)."""
-    timestamp = datetime.datetime.fromtimestamp(time.time()).strftime("%y-%m-%d_%H-%M-%S")
+    returns (dlog, output_directory).  Under a process group the default
+    directory is named from rank 0's clock, rank 0 alone creates it and
+    tees, and the other ranks wait for it."""
+    start = [time.time()]
+    if distributed.active():
+        torch.distributed.broadcast_object_list(start, src=0)
+    timestamp = datetime.datetime.fromtimestamp(start[0]).strftime("%y-%m-%d_%H-%M-%S")
     outdir = args.output_directory or f"./output/{timestamp}"
-    os.makedirs(outdir, exist_ok=True)
     training_file = os.path.join(outdir, "training.h5")
-    dlog = DataLog()
-    dlog.set_handler(["*"], StoreToH5, training_file, async_writes=True)
     txt_file = os.path.join(outdir, "terminal.txt")
     # a tee left by an earlier experiment in this process would receive
     # this run's output and keep its file open
     restore_stdout()
-    sys.stdout = stdout_logger(txt_file)
-    print(f"Will write training output to {training_file}")
-    print(f"Will write terminal output to {txt_file}")
-    print("Hyperparameters used:")
-    for k in sorted(vars(args), key=lambda s: s.lower()):
-        print("{: <25} : {}".format(k, vars(args)[k]))
+    if is_writer():
+        os.makedirs(outdir, exist_ok=True)
+        sys.stdout = stdout_logger(txt_file)
+        print(f"Will write training output to {training_file}")
+        print(f"Will write terminal output to {txt_file}")
+        print("Hyperparameters used:")
+        for k in sorted(vars(args), key=lambda s: s.lower()):
+            print("{: <25} : {}".format(k, vars(args)[k]))
+    distributed.barrier()
+    dlog = DataLog()
+    dlog.set_handler(["*"], StoreToH5, training_file, async_writes=True)
     return dlog, outdir
 
 

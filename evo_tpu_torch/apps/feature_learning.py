@@ -19,8 +19,10 @@ import numpy as np
 
 from evo_tpu_torch.apps.common import (
     chunking_kwargs,
+    is_writer,
     params_to_dict,
     platform_device,
+    rank_pieces,
     restore_stdout,
     setup_experiment,
     variational_parser,
@@ -28,11 +30,10 @@ from evo_tpu_torch.apps.common import (
 from evo_tpu_torch.apps.images import synthetic_image
 from evo_tpu_torch.apps.training import EMTrainer
 from evo_tpu_torch.apps.viz import GFVisualizer
-from evo_tpu_torch.models.base import make_data
 from evo_tpu_torch.models.bsc import BSC
 from evo_tpu_torch.models.sssc import SSSC
+from evo_tpu_torch.parallel import distributed
 from evo_tpu_torch.prepost import extract_random_patches
-from evo_tpu_torch.variational.state_init import init_states
 
 
 def load_patches(data_file: str):
@@ -56,29 +57,24 @@ def synthetic_patchfile(path: str, N: int = 2000, ph: int = 8, pw: int = 8, seed
     return path
 
 
-def build(args, Y, device) -> dict:
-    """The experiment's pieces on ``device`` for patches Y [N, D]: model,
-    data (not padded: evo_tpu pads to 1024 rows on a TPU only, for
-    Mosaic's tiles), Theta^0 (params), cfg and estate."""
+def build(args, Y, device, pad_multiple: int = 1) -> dict:
+    """The experiment's pieces on ``device`` for patches Y [N, D]: model and
+    this rank's data, Theta^0 (params), cfg and estate (``rank_pieces``;
+    not padded for a tile: evo_tpu pads to 1024 rows on a TPU only, for
+    Mosaic's tiles)."""
     N, D = Y.shape
     model = {"bsc": BSC, "sssc": SSSC}[args.model](D=D, H=args.H, device=device)
-    data = make_data(Y, n_blocks=args.n_blocks, device=device)
-    params = model.standard_init(data, seed=args.seed, y_host=Y)
-    cfg, estate = init_states(
-        N=data.y.shape[0] * data.y.shape[1], S=args.Ksize, H=args.H,
-        parent_selection=args.parent_selection, mutation_algorithm=args.mutation_algorithm,
-        no_parents=args.no_parents, no_children=args.no_children,
-        no_generations=args.no_generations, bitflip_prob=args.bitflip_prob,
-        n_blocks=args.n_blocks, seed=args.seed, device=device)
-    return dict(model=model, data=data, params=params, cfg=cfg, estate=estate)
+    return dict(rank_pieces(model, Y, args, device, pad_multiple=pad_multiple), model=model)
 
 
 def run(args) -> dict:
     device = platform_device()
-    if not os.path.exists(args.data_file):
+    # rank 0 writes a missing patch file; the other ranks read it after
+    if is_writer() and not os.path.exists(args.data_file):
         print(f"NOTE: {args.data_file} not found; generating synthetic patches")
         os.makedirs(os.path.dirname(args.data_file) or ".", exist_ok=True)
         synthetic_patchfile(args.data_file)
+    distributed.barrier()
     Y, ph, pw, no_channels = load_patches(args.data_file)
     dlog, outdir = setup_experiment(args, "feature-learning")
     try:
@@ -87,20 +83,23 @@ def run(args) -> dict:
         print(f"{N} patches of dimension {D}")
         b = build(args, Y, device)
         dlog.append_all({f"{k}_init": v for k, v in params_to_dict(b["params"]).items()})
-        visualizer = GFVisualizer(
-            viz_every=getattr(args, "viz_every", 1) or 1, output_directory=outdir,
-            patch_shape=(no_channels, ph, pw) if no_channels > 1 else (ph, pw),
-            sort_gfs=args.sort_gfs, gif_framerate=getattr(args, "gif_framerate", None))
+        visualizer, callback = None, None
+        if is_writer():
+            visualizer = GFVisualizer(
+                viz_every=getattr(args, "viz_every", 1) or 1, output_directory=outdir,
+                patch_shape=(no_channels, ph, pw) if no_channels > 1 else (ph, pw),
+                sort_gfs=args.sort_gfs, gif_framerate=getattr(args, "gif_framerate", None))
+
+            def callback(epoch, F, params, **kw):
+                visualizer.process_epoch(epoch=epoch, F=F, params=params)
         trainer = EMTrainer(b["model"], b["cfg"], b["params"], b["estate"], b["data"], dlog,
                             outdir, seed=args.seed + 1, checkpoint_every=args.checkpoint_every,
                             resume=args.resume, tracefile=getattr(args, "tracefile", None),
                             device_trace_every=getattr(args, "device_trace_every", 0),
                             **chunking_kwargs(args))
-        params, _, stats = trainer.run(
-            args.no_epochs,
-            epoch_callback=lambda epoch, F, params, **kw: visualizer.process_epoch(
-                epoch=epoch, F=F, params=params))
-        visualizer.finalize()
+        params, _, stats = trainer.run(args.no_epochs, epoch_callback=callback)
+        if visualizer is not None:
+            visualizer.finalize()
         print("Finished")
         return {"F": float(stats.F), "params": params, "outdir": outdir}
     finally:

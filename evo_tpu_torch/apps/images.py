@@ -29,20 +29,21 @@ from evo_tpu_torch.apps.common import (
     awgn_parser,
     chunking_kwargs,
     image_experiment_parser,
+    is_writer,
     mcar_parser,
     output_parser,
     params_to_dict,
     patch_parser,
     platform_device,
+    rank_pieces,
     restore_stdout,
     setup_experiment,
     to_host,
     variational_parser,
     viz_parser,
 )
-from evo_tpu_torch.apps.training import EMTrainer, gather_reconstruction
+from evo_tpu_torch.apps.training import EMTrainer
 from evo_tpu_torch.apps.viz import ReconstructionVisualizer
-from evo_tpu_torch.models.base import make_data
 from evo_tpu_torch.models.bsc import BSC
 from evo_tpu_torch.models.sssc import SSSC
 from evo_tpu_torch.parallel import distributed
@@ -55,7 +56,6 @@ from evo_tpu_torch.prepost import (
 )
 from evo_tpu_torch.prepost.device_merge import DeviceMerger
 from evo_tpu_torch.utils import tracing
-from evo_tpu_torch.variational.state_init import init_states
 
 MERGERS = {"mean": mean_merger, "median": median_merger}
 
@@ -112,18 +112,19 @@ def observed(corrupted: np.ndarray, args) -> np.ndarray:
     return ~np.isnan(_patches(corrupted, args).get().T)
 
 
-def build(args, clean, corrupted, x_keep, device) -> dict:
+def build(args, clean, corrupted, x_keep, device, pad_multiple: int = 1) -> dict:
     """The experiment's pieces on ``device``: the patches of ``corrupted``
     (ovp, Y [N, D] with NaN at missing pixels, each row centred on its
-    observed mean unless --no_dc_center, that dc [N, 1]), model, data with
-    x = ``x_keep`` (None: reconstruct every entry, as in denoising),
-    Theta^0 (params), cfg, estate, and reconstruct_at(e), which is true for
-    every epoch when inpainting (the M-step reads the reconstruction), else
-    for the first, every merge_every-th and the last.
+    observed mean unless --no_dc_center, that dc [N, 1]), model, this
+    rank's data with x = ``x_keep`` (None: reconstruct every entry, as in
+    denoising), Theta^0 (params), cfg and estate (``rank_pieces``), and
+    reconstruct_at(e), which is true for every epoch when inpainting (the
+    M-step reads the reconstruction), else for the first, every
+    merge_every-th and the last.
 
-    The batch is not padded: evo_tpu pads it to 1024 rows on a TPU only,
-    for Mosaic's tiles (evo_tpu/apps/images.py:108-114), and the CUDA
-    kernels take any B."""
+    The batch is not padded for a tile: evo_tpu pads it to 1024 rows on a
+    TPU only, for Mosaic's tiles (evo_tpu/apps/images.py:108-114), and the
+    CUDA kernels take any B."""
     isrgb = clean.ndim == 3 and clean.shape[2] == 3
     ovp = _patches(corrupted, args)
     Y = ovp.get().T  # [N, D]
@@ -146,14 +147,7 @@ def build(args, clean, corrupted, x_keep, device) -> dict:
     model = _make_model(args.algo, D, args.H, device,
                         incomplete_es3c_subset=inpainting and args.algo == "es3c")
     x = np.zeros_like(Y, dtype=bool) if x_keep is None else x_keep
-    data = make_data(Y, x=x, n_blocks=args.n_blocks, device=device)
-    params = model.standard_init(data, seed=args.seed, y_host=Y)
-    cfg, estate = init_states(
-        N=data.y.shape[0] * data.y.shape[1], S=args.Ksize, H=args.H,
-        parent_selection=args.parent_selection, mutation_algorithm=args.mutation_algorithm,
-        no_parents=args.no_parents, no_children=args.no_children,
-        no_generations=args.no_generations, bitflip_prob=args.bitflip_prob,
-        n_blocks=args.n_blocks, seed=args.seed, device=device)
+    pieces = rank_pieces(model, Y, args, device, x=x, pad_multiple=pad_multiple)
     merge_every = getattr(args, "merge_every", None) or args.viz_every or args.no_epochs
 
     def reconstruct_at(e):
@@ -163,14 +157,14 @@ def build(args, clean, corrupted, x_keep, device) -> dict:
 
     return dict(ovp=ovp, Y=Y, dc=dc, N=N, D=D, inpainting=inpainting, merge_every=merge_every,
                 patch_shape=(no_channels, ph, pw) if isrgb else (ph, pw), model=model,
-                data=data, params=params, cfg=cfg, estate=estate,
-                reconstruct_at=reconstruct_at)
+                reconstruct_at=reconstruct_at, **pieces)
 
 
 def full_readback(b, y_rec) -> np.ndarray:
-    """The reconstruction [N, D] (f64, DC added back) from the whole
-    blocked y_rec."""
-    return gather_reconstruction(y_rec, b["N"]) + b["dc"]
+    """The reconstruction [N, D] in Y's row order (f64, DC added back):
+    every rank's blocked y_rec gathered into the global layout, whose flat
+    rows are Y's followed by the padding rows."""
+    return distributed.gather_global(y_rec).reshape(-1, b["D"])[:b["N"]] + b["dc"]
 
 
 def compact_reader(b, device):
@@ -270,11 +264,12 @@ def run_experiment(args, clean, corrupted, x_keep, name, device) -> dict:
     try:
         b = build(args, clean, corrupted, x_keep, device)
         dlog.append_all({f"{k}_init": v for k, v in params_to_dict(b["params"]).items()})
-        corrupted_viz = np.where(np.isnan(corrupted), 0.0, corrupted)
-        visualizer = ReconstructionVisualizer(
-            viz_every=args.viz_every or args.no_epochs, output_directory=outdir,
-            clean_image=clean, corrupted_image=corrupted_viz, patch_shape=b["patch_shape"],
-            gif_framerate=args.gif_framerate)
+        visualizer = None
+        if is_writer():
+            visualizer = ReconstructionVisualizer(
+                viz_every=args.viz_every or args.no_epochs, output_directory=outdir,
+                clean_image=clean, corrupted_image=np.where(np.isnan(corrupted), 0.0, corrupted),
+                patch_shape=b["patch_shape"], gif_framerate=args.gif_framerate)
         callback, last = make_epoch_callback(args, b, clean, dlog, device, visualizer)
         trainer = EMTrainer(
             b["model"], b["cfg"], b["params"], b["estate"], b["data"], dlog, outdir,
@@ -285,7 +280,8 @@ def run_experiment(args, clean, corrupted, x_keep, name, device) -> dict:
                               auto_overwrite=False))
         params, _, stats = trainer.run(args.no_epochs, reconstruct_at=b["reconstruct_at"],
                                        epoch_callback=callback)
-        visualizer.finalize()
+        if visualizer is not None:
+            visualizer.finalize()
         print("Finished")
         return {"F": float(stats.F), "psnr": last.get("psnr"), "rec": last.get("rec"),
                 "params": params, "outdir": outdir}

@@ -109,8 +109,11 @@ def init_distributed(backend: Optional[str] = None, rank: Optional[int] = None,
         backend = "nccl" if dev.type == "cuda" else "gloo"
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
-    dist.init_process_group(backend=backend, init_method=init_method, rank=rank,
-                            world_size=world_size, timeout=timeout)
+    # only what was given: torch's env:// reads the rest (RANK, WORLD_SIZE,
+    # MASTER_ADDR, MASTER_PORT) and rejects None for rank or world size
+    given = {k: v for k, v in (("init_method", init_method), ("rank", rank),
+                               ("world_size", world_size)) if v is not None}
+    dist.init_process_group(backend=backend, timeout=timeout, **given)
     return rank_world()
 
 
