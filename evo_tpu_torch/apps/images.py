@@ -234,9 +234,8 @@ def make_epoch_callback(args, b, clean, dlog, device, visualizer=None):
                                           or epoch == args.no_epochs)
         if do_merge:
             if route == "device":
-                tracing.tracepoint("device_merge:begin")
-                out = to_host(merger(y_rec, dc_dev))  # one transfer for all four
-                tracing.tracepoint("device_merge:end")
+                with tracing.span("device_merge"):
+                    out = to_host(merger(y_rec, dc_dev))  # one transfer for all four
                 merged = {name: (out[name], float(out[f"psnr_{name}"])) for name in MERGERS}
             else:
                 Y_rec = read(y_rec) if route == "compact" else full_readback(b, y_rec)
@@ -247,10 +246,9 @@ def make_epoch_callback(args, b, clean, dlog, device, visualizer=None):
                 print(f"\tpsnr_{name} = {p:.3f}")
             last.update(rec=merged["mean"][0], psnr=merged["mean"][1])
         if visualizer is not None:
-            tracing.tracepoint("viz:begin")
-            visualizer.process_epoch(epoch=epoch, F=F, params=params, rec=last.get("rec"),
-                                     psnr_val=last.get("psnr"))
-            tracing.tracepoint("viz:end")
+            with tracing.span("viz"):
+                visualizer.process_epoch(epoch=epoch, F=F, params=params, rec=last.get("rec"),
+                                         psnr_val=last.get("psnr"))
 
     return callback, last
 

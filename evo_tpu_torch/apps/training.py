@@ -9,8 +9,11 @@ trajectory bit for bit.
 Observability:
   - theta_append=False overwrites the parameter tables (DataLog.assign),
     so training.h5 keeps a constant size; chunked epochs need it.
-  - tracefile writes host tracepoints around every phase of an epoch
-    (em_step or em_steps, log, epoch_callback, checkpoint).
+  - tracefile records host spans (``utils.tracing``) around every phase
+    of an epoch (em_step or em_steps, stats_wait inside it, log,
+    epoch_callback, checkpoint) and the models' em_step.* phases, each
+    epoch's EA counters (ea.children, ea.unique) on em_step, and resolves
+    the phases' device times after each stats transfer.
   - device_trace_every=N records one epoch in every N with torch.profiler
     into <outdir>/device_trace (a Chrome trace).
 Each epoch's (or chunk's) statistics reach the host in one transfer.
@@ -84,6 +87,23 @@ class EMTrainer:
                 resume, params_like=self.params, cfg=self.cfg, model=self.model, data=self.data)
             print(f"Resumed from {resume} at epoch {self.start_epoch}")
 
+    def _await_stats(self, stats: StepStats) -> StepStats:
+        """``stats_to_host``, the step's completion barrier (span
+        ``stats_wait``); then the device times of the step's spans, and
+        the EA's counters on the open span: ``ea.children``, this rank's
+        rows times the children a datapoint's EA evaluates, and
+        ``ea.unique``, S_nunique (new unique children per datapoint, from
+        the stats) times those rows."""
+        with tracing.span("stats_wait"):
+            stats = stats_to_host(stats)
+        tracing.resolve()
+        if self.cfg.n_new:
+            rows = self.data.row_valid.numel()
+            s_nunique = np.atleast_1d(stats.S_nunique)
+            tracing.count("ea.children", rows * self.cfg.n_new * s_nunique.size)
+            tracing.count("ea.unique", int(np.rint(s_nunique.astype(np.float64) * rows).sum()))
+        return stats
+
     def _log_epoch(self, stats, log_theta: bool = True):
         metrics = {"F": float(stats.F), "S_nunique": float(stats.S_nunique),
                    "S_sub": float(stats.S_sub)}
@@ -139,11 +159,10 @@ class EMTrainer:
         per-epoch and chunked paths, so that their files are alike)."""
         if not (self.checkpoint_every and epoch % self.checkpoint_every == 0):
             return
-        tracing.tracepoint("checkpoint:begin")
         path = os.path.join(self.outdir, "checkpoint.npz")
-        save_checkpoint(path, self.params, self.estate, epoch, self.seed,
-                        cfg=self.cfg, model=self.model, data=self.data)
-        tracing.tracepoint("checkpoint:end")
+        with tracing.span("checkpoint"):
+            save_checkpoint(path, self.params, self.estate, epoch, self.seed,
+                            cfg=self.cfg, model=self.model, data=self.data)
         print(f"\tcheckpoint -> {path}")
 
     def _chunk_len(self, e: int, no_epochs: int, reconstruct_at) -> int:
@@ -168,24 +187,22 @@ class EMTrainer:
         last epoch)."""
         self.dlog.progress(f"Epochs {e + 1}-{e + n} of {no_epochs} (one chunk)")
         t0 = time.time()
-        tracing.tracepoint("em_steps:begin")
-        self.params, self.estate, stats_all = em_steps(
-            self.model, self.params, self.estate, self.data, self.seed, self.cfg, n, e0=e)
-        stats_all = stats_to_host(stats_all)
-        tracing.tracepoint("em_steps:end")
+        tracing.set_epoch(e)
+        with tracing.span("em_steps"):
+            self.params, self.estate, stats_all = em_steps(
+                self.model, self.params, self.estate, self.data, self.seed, self.cfg, n, e0=e)
+            stats_all = self._await_stats(stats_all)
 
-        tracing.tracepoint("log:begin")
-        stats = None
-        for i in range(n):
-            stats = StepStats(**{k: v[i] for k, v in vars(stats_all).items()})
-            self._log_epoch(stats, log_theta=(i == n - 1))
-            self._print_guards(stats)
-        tracing.tracepoint("log:end")
+        with tracing.span("log"):
+            stats = None
+            for i in range(n):
+                stats = StepStats(**{k: v[i] for k, v in vars(stats_all).items()})
+                self._log_epoch(stats, log_theta=(i == n - 1))
+                self._print_guards(stats)
         if epoch_callback is not None:
-            tracing.tracepoint("epoch_callback:begin")
-            epoch_callback(epoch=e + n, F=float(stats.F), params=self.params, stats=stats,
-                           y_rec=None)
-            tracing.tracepoint("epoch_callback:end")
+            with tracing.span("epoch_callback"):
+                epoch_callback(epoch=e + n, F=float(stats.F), params=self.params, stats=stats,
+                               y_rec=None)
         self._maybe_checkpoint(e + n)
         print("\tTotal chunk runtime : %.2f s (%d epochs)" % (time.time() - t0, n))
         return e + n, stats
@@ -224,25 +241,23 @@ class EMTrainer:
             t0 = time.time()
             capture = self.device_trace_every and (e + 1) % self.device_trace_every == 0
             profile_dir = os.path.join(self.outdir, "device_trace")
-            tracing.tracepoint("em_step:begin")
-            with tracing.device_trace(profile_dir) if capture else contextlib.nullcontext():
-                self.params, self.estate, stats, y_rec = self.model.em_step(
-                    self.params, self.estate, self.data, epoch_generator(self.seed, e, dev),
-                    self.cfg, do_reconstruction=rec)
-                stats = stats_to_host(stats)  # also the step's completion barrier
-            F = float(stats.F)
-            tracing.tracepoint("em_step:end")
+            tracing.set_epoch(e)
+            with tracing.span("em_step"):
+                with tracing.device_trace(profile_dir) if capture else contextlib.nullcontext():
+                    self.params, self.estate, stats, y_rec = self.model.em_step(
+                        self.params, self.estate, self.data, epoch_generator(self.seed, e, dev),
+                        self.cfg, do_reconstruction=rec)
+                    stats = self._await_stats(stats)
+                F = float(stats.F)
             if capture:
                 print(f"\tdevice trace -> {profile_dir}")
 
-            tracing.tracepoint("log:begin")
-            self._log_epoch(stats)
-            tracing.tracepoint("log:end")
+            with tracing.span("log"):
+                self._log_epoch(stats)
             self._print_guards(stats)
             if epoch_callback is not None:
-                tracing.tracepoint("epoch_callback:begin")
-                epoch_callback(epoch=e + 1, F=F, params=self.params, stats=stats, y_rec=y_rec)
-                tracing.tracepoint("epoch_callback:end")
+                with tracing.span("epoch_callback"):
+                    epoch_callback(epoch=e + 1, F=F, params=self.params, stats=stats, y_rec=y_rec)
             self._maybe_checkpoint(e + 1)
             print("\tTotal epoch runtime : %.2f s" % (time.time() - t0))
             e += 1

@@ -12,7 +12,12 @@ An epoch (``em_step``) is a Python loop over the data blocks.  In each
 block the lpj of K^(n) and of each generation's children go through the
 ``bsc_lpj`` kernel (which also emits the dedup keys), the merged states'
 sufficient statistics through the ``bsc_suffstat`` kernel, and the rest is
-plain PyTorch on the same device.
+plain PyTorch on the same device.  Its phases are tracing spans
+(``utils.tracing``; no-ops unless a trace file is open), the same in
+``SSSC``: ``em_step.lpj`` (``block_gram`` and every lpj, the children's
+nested in the EA's), ``em_step.ea``, ``em_step.merge``,
+``em_step.suffstat`` (F, responsibilities, the suffstat kernel,
+reconstruction and M-step sums) and, after the blocks, ``em_step.mstep``.
 
 With ``EAConfig.packed_states`` the state sets stay lane-major bit-packed
 through the whole epoch, at every H (evo_tpu needs H % 32 == 0 for this on
@@ -81,6 +86,7 @@ from evo_tpu_torch.ops.numerics import (
     shifted_logsumexp,
 )
 from evo_tpu_torch.parallel import distributed
+from evo_tpu_torch.utils import tracing
 from evo_tpu_torch.variational.config import EAConfig
 from evo_tpu_torch.variational.evolve import evolve_states_block
 from evo_tpu_torch.variational.state_init import EState, full_state_matrix
@@ -237,28 +243,34 @@ class BSC:
         args = (Wty_b, y2_b, G_b, pre["pre1"], pre["pil_bar"])
         packed = cfg.packed_states
         gram_form = G_b.dim() == 3 or self.wide()
+        dev = ss_b.device
 
         def lpj_block(states):
-            if gram_form:
-                if packed:
-                    states = unpack_bits_lane(states, self.H).to(torch.int8)
-                lpj, keys = lpj_gram(states, *args), None
-            elif cfg.exact or packed:
-                lpj, keys = bsc_lpj(states, *args), None
-            else:
-                lpj, keys = bsc_lpj(states, *args, emit_keys=True)
-            lpj, counts = reset_lpj(lpj, valid=valid_b)
-            return lpj, keys, torch.stack(counts)
+            with tracing.span("em_step.lpj", dev):
+                if gram_form:
+                    if packed:
+                        states = unpack_bits_lane(states, self.H).to(torch.int8)
+                    lpj, keys = lpj_gram(states, *args), None
+                elif cfg.exact or packed:
+                    lpj, keys = bsc_lpj(states, *args), None
+                else:
+                    lpj, keys = bsc_lpj(states, *args, emit_keys=True)
+                lpj, counts = reset_lpj(lpj, valid=valid_b)
+                return lpj, keys, torch.stack(counts)
 
         lpj_K, ss_keys, counts = lpj_block(ss_b)
         if cfg.exact:
-            zeros = torch.zeros(ss_b.shape[0], dtype=torch.int64, device=ss_b.device)
+            zeros = torch.zeros(ss_b.shape[0], dtype=torch.int64, device=dev)
             return ss_b, lpj_K, zeros, zeros, counts
-        children, child_lpj, new_unique, child_lpj_raw, aux = evolve_states_block(
-            ss_b, lpj_K, lpj_block, cfg, pre["piH"], generator, ss_dkeys=ss_keys, rows=rows)
-        ss2, lpj2, n_uni, n_sub, _ = merge_states(cfg, ss_b, lpj_K, children, child_lpj,
-                                                  new_unique, child_lpj_raw)
-        return ss2, lpj2, n_uni, n_sub, counts + sum(aux)
+        with tracing.span("em_step.ea", dev):
+            children, child_lpj, new_unique, child_lpj_raw, aux = evolve_states_block(
+                ss_b, lpj_K, lpj_block, cfg, pre["piH"], generator, ss_dkeys=ss_keys,
+                rows=rows)
+            counts = counts + sum(aux)
+        with tracing.span("em_step.merge", dev):
+            ss2, lpj2, n_uni, n_sub, _ = merge_states(cfg, ss_b, lpj_K, children, child_lpj,
+                                                      new_unique, child_lpj_raw)
+        return ss2, lpj2, n_uni, n_sub, counts
 
     # ---------------------------------------------------------------- epoch
 
@@ -303,57 +315,60 @@ class BSC:
 
         for i in range(data.n_blocks):
             y_b, valid_b = data.y[i], data.row_valid[i]
-            G_b, Wty_b, y2_b = block_gram(W, y_b, data.x_infr[i], data.incomplete)
+            with tracing.span("em_step.lpj", dev):
+                G_b, Wty_b, y2_b = block_gram(W, y_b, data.x_infr[i], data.incomplete)
             ss2, lpj2, n_uni, n_sub, counts = self._estep_block(
                 generator, estate.ss[i], G_b, Wty_b, y2_b, valid_b, pre, cfg, rows)
-            lpj_full = torch.cat([pre["pre1"] * y2_b[:, None], lpj2], 1) if S_perm else lpj2
-            vf = valid_b.to(dt)
-            Fsum += (shifted_logsumexp(lpj_full) * vf).sum()
-            r = posterior_weights(lpj_full) * vf[:, None]
-            rs = r[:, S_perm:].contiguous()
-            rho, s_abs, Wq_b = bsc_suffstat(ss2, rs, H=self.H)
-            Wq += Wq_b
-            pies += rho.sum(dim=0)
-            if do_reconstruction:
-                # posterior-predictive mean (reference _models.py:614-665)
-                sf = unpack_bits_lane(ss2, self.H) if cfg.packed_states else ss2
-                means = sf.to(dt) @ W.T  # [B, S, D]
-                y_rec_all[i] = torch.where(data.x[i], y_b, (rs[:, None, :] @ means)[:, 0])
-            if data.incomplete:
-                # sum_s r ||m (y_rec - W s)||^2 from the reconstruction
-                y_rec = y_rec_all[i]
-                m = data.x_infr[i]
-                dy = (y_rec[:, None, :] - means) * m[:, None, :]
-                sig += (rs * (dy * dy).sum(dim=-1)).sum()
-                if S_perm:
-                    sig += (r[:, 0] * (y_rec * y_rec * m).sum(dim=-1)).sum()
-                Wp += rho.T @ y_rec
-            else:
-                # sum_s r ||y - W s||^2 recovered from the lpj; reset-clamped
-                # values would poison it, so they are masked out (their
-                # responsibility is ~0 anyway)
-                resid2 = torch.clamp((lpj2 - pre["pil_bar"] * s_abs) / pre["pre1"], min=0.0)
-                sig += torch.where(lpj2 > floor, rs * resid2, 0.0).sum()
-                if S_perm:
-                    sig += (r[:, 0] * y2_b).sum()
-                Wp += rho.T @ y_b
-            nuni += (n_uni * valid_b).sum()
-            nsub += (n_sub * valid_b).sum()
-            resets += counts
-            ss_all[i] = ss2
-            lpj_all[i] = lpj_full
+            with tracing.span("em_step.suffstat", dev):
+                lpj_full = torch.cat([pre["pre1"] * y2_b[:, None], lpj2], 1) if S_perm else lpj2
+                vf = valid_b.to(dt)
+                Fsum += (shifted_logsumexp(lpj_full) * vf).sum()
+                r = posterior_weights(lpj_full) * vf[:, None]
+                rs = r[:, S_perm:].contiguous()
+                rho, s_abs, Wq_b = bsc_suffstat(ss2, rs, H=self.H)
+                Wq += Wq_b
+                pies += rho.sum(dim=0)
+                if do_reconstruction:
+                    # posterior-predictive mean (reference _models.py:614-665)
+                    sf = unpack_bits_lane(ss2, self.H) if cfg.packed_states else ss2
+                    means = sf.to(dt) @ W.T  # [B, S, D]
+                    y_rec_all[i] = torch.where(data.x[i], y_b, (rs[:, None, :] @ means)[:, 0])
+                if data.incomplete:
+                    # sum_s r ||m (y_rec - W s)||^2 from the reconstruction
+                    y_rec = y_rec_all[i]
+                    m = data.x_infr[i]
+                    dy = (y_rec[:, None, :] - means) * m[:, None, :]
+                    sig += (rs * (dy * dy).sum(dim=-1)).sum()
+                    if S_perm:
+                        sig += (r[:, 0] * (y_rec * y_rec * m).sum(dim=-1)).sum()
+                    Wp += rho.T @ y_rec
+                else:
+                    # sum_s r ||y - W s||^2 recovered from the lpj; reset-clamped
+                    # values would poison it, so they are masked out (their
+                    # responsibility is ~0 anyway)
+                    resid2 = torch.clamp((lpj2 - pre["pil_bar"] * s_abs) / pre["pre1"], min=0.0)
+                    sig += torch.where(lpj2 > floor, rs * resid2, 0.0).sum()
+                    if S_perm:
+                        sig += (r[:, 0] * y2_b).sum()
+                    Wp += rho.T @ y_b
+                nuni += (n_uni * valid_b).sum()
+                nsub += (n_sub * valid_b).sum()
+                resets += counts
+                ss_all[i] = ss2
+                lpj_all[i] = lpj_full
 
-        acc = dict(Wp=Wp, Wq=Wq, pies=pies, sigma=sig)
-        pre, acc, tot = sum_over_ranks(self, params, data, pre, acc,
-                                       dict(Fsum=Fsum, nuni=nuni, nsub=nsub, resets=resets))
-        new_params, guard = self._m_step_finalize(params, acc, pre, data.incomplete, cfg)
-        N, resets = pre["N"], tot["resets"]
-        stats = StepStats(
-            F=pre["ljc"] + tot["Fsum"] / N, S_nunique=tot["nuni"] / N, S_sub=tot["nsub"] / N,
-            n_reset_nan=resets[0], n_reset_small=resets[1], n_reset_inf=resets[2],
-            n_guard_sigma_floor=guard, n_guard_mus_freeze=torch.zeros_like(guard),
-            n_guard_psi_freeze=torch.zeros_like(guard),
-            guard_psi_renorm=torch.zeros((), dtype=torch.float32, device=dev))
+        with tracing.span("em_step.mstep", dev):
+            acc = dict(Wp=Wp, Wq=Wq, pies=pies, sigma=sig)
+            pre, acc, tot = sum_over_ranks(self, params, data, pre, acc,
+                                           dict(Fsum=Fsum, nuni=nuni, nsub=nsub, resets=resets))
+            new_params, guard = self._m_step_finalize(params, acc, pre, data.incomplete, cfg)
+            N, resets = pre["N"], tot["resets"]
+            stats = StepStats(
+                F=pre["ljc"] + tot["Fsum"] / N, S_nunique=tot["nuni"] / N, S_sub=tot["nsub"] / N,
+                n_reset_nan=resets[0], n_reset_small=resets[1], n_reset_inf=resets[2],
+                n_guard_sigma_floor=guard, n_guard_mus_freeze=torch.zeros_like(guard),
+                n_guard_psi_freeze=torch.zeros_like(guard),
+                guard_psi_renorm=torch.zeros((), dtype=torch.float32, device=dev))
         return new_params, EState(ss=ss_all, lpj=lpj_all), stats, y_rec_all
 
     # ---------------------------------------------------------------- M-step

@@ -14,7 +14,8 @@ block the lpj of K^(n) and of each generation's children go through the
 ``sssc_suffstat`` kernel (which solves the merged states again, as
 evo_tpu's kernel path does), and the rest is plain PyTorch on the same
 device.  evo_tpu's XLA path stashes the candidate solves instead
-(``STASH_MAX_H``); that is an XLA strategy and is not carried over.
+(``STASH_MAX_H``); that is an XLA strategy and is not carried over.  The
+epoch's phases are the tracing spans that ``BSC.em_step`` opens.
 
 Incomplete data (NaN entries in ``make_data``) run under the per-datapoint
 Gram G_n = W^T diag(m_n) W, built one block at a time, through the masked
@@ -79,6 +80,7 @@ from evo_tpu_torch.ops.numerics import (
 from evo_tpu_torch.ops.sssc_lpj import active_groups, gather_sub, gram_sub, sssc_lpj
 from evo_tpu_torch.ops.sssc_suffstat import moments, sssc_suffstat
 from evo_tpu_torch.parallel import distributed
+from evo_tpu_torch.utils import tracing
 from evo_tpu_torch.variational.config import EAConfig
 from evo_tpu_torch.variational.evolve import evolve_states_block
 from evo_tpu_torch.variational.state_init import EState, full_state_matrix
@@ -337,21 +339,27 @@ class SSSC:
         those of the global block's ``rows`` (see BSC's).  Returns (ss2,
         lpj2, n_uni [B], n_sub [B], reset counts [3])."""
 
+        dev = ss_b.device
+
         def lpj_block(states):
-            lpj, _bad = lpj_fn(states, Wty_b, y2_b, G_b, params.Psi, params.mus,
-                               pre["pil_bar"], pre["sigma2_inv"])
-            lpj, counts = reset_lpj(lpj, valid=valid_b)
-            return lpj, None, torch.stack(counts)
+            with tracing.span("em_step.lpj", dev):
+                lpj, _bad = lpj_fn(states, Wty_b, y2_b, G_b, params.Psi, params.mus,
+                                   pre["pil_bar"], pre["sigma2_inv"])
+                lpj, counts = reset_lpj(lpj, valid=valid_b)
+                return lpj, None, torch.stack(counts)
 
         lpj_K, _, counts = lpj_block(ss_b)
         if cfg.exact:
-            zeros = torch.zeros(ss_b.shape[0], dtype=torch.int64, device=ss_b.device)
+            zeros = torch.zeros(ss_b.shape[0], dtype=torch.int64, device=dev)
             return ss_b, lpj_K, zeros, zeros, counts
-        children, child_lpj, new_unique, child_lpj_raw, aux = evolve_states_block(
-            ss_b, lpj_K, lpj_block, cfg, pre["piH"], generator, rows=rows)
-        ss2, lpj2, n_uni, n_sub, _ = merge_states(cfg, ss_b, lpj_K, children, child_lpj,
-                                                  new_unique, child_lpj_raw)
-        return ss2, lpj2, n_uni, n_sub, counts + sum(aux)
+        with tracing.span("em_step.ea", dev):
+            children, child_lpj, new_unique, child_lpj_raw, aux = evolve_states_block(
+                ss_b, lpj_K, lpj_block, cfg, pre["piH"], generator, rows=rows)
+            counts = counts + sum(aux)
+        with tracing.span("em_step.merge", dev):
+            ss2, lpj2, n_uni, n_sub, _ = merge_states(cfg, ss_b, lpj_K, children, child_lpj,
+                                                      new_unique, child_lpj_raw)
+        return ss2, lpj2, n_uni, n_sub, counts
 
     # ---------------------------------------------------------------- epoch
 
@@ -392,49 +400,52 @@ class SSSC:
 
         for i in range(data.n_blocks):
             y_b, valid_b = data.y[i], data.row_valid[i]
-            G_b, Wty_b, y2_b = block_gram(params.W, y_b, data.x_infr[i], data.incomplete)
-            ss_b = estate.ss[i]
-            if cfg.packed_states:
-                ss_b = unpack_bits_lane(ss_b, H).to(torch.int8)
+            with tracing.span("em_step.lpj", dev):
+                G_b, Wty_b, y2_b = block_gram(params.W, y_b, data.x_infr[i], data.incomplete)
+                ss_b = estate.ss[i]
+                if cfg.packed_states:
+                    ss_b = unpack_bits_lane(ss_b, H).to(torch.int8)
             ss2, lpj2, n_uni, n_sub, counts = self._estep_block(
                 generator, ss_b, G_b, Wty_b, y2_b, valid_b, params, pre, cfg, lpj_fn, rows)
-            if cfg.allzero:  # the permanent all-zero state (evo_tpu sssc.py:467-469)
-                lpj2 = torch.cat([-0.5 * pre["sigma2_inv"] * y2_b[:, None], lpj2], 1)
-            vf = valid_b.to(dt)
-            Fsum += (shifted_logsumexp(lpj2) * vf).sum()
-            rs = (posterior_weights(lpj2) * vf[:, None])[:, cfg.S_perm:].contiguous()
-            xpt_sz, xpt_s, xpt_ss, xpt_szsz, s_sz, sz_sz = suffstat_fn(
-                ss2, rs, Wty_b, G_b, params.Psi, params.mus, pre["sigma2_inv"])
-            y_m = y_b
-            if do_reconstruction:
-                est = xpt_sz @ params.W.T
-                y_rec_all[i] = torch.where(data.x[i], y_b, est)
-                if data.incomplete:
-                    y_m = y_rec_all[i]
-                    acc["trWszszW"] += (data.x_infr[i] * est * est).sum()
-            acc["Wp"] += y_m.T @ xpt_sz
-            acc["xpt_s"] += xpt_s.sum(0)
-            acc["xpt_sz"] += xpt_sz.sum(0)
-            acc["xpt_ss"] += xpt_ss
-            acc["xpt_szsz"] += xpt_szsz
-            acc["s_sz_outer"] += s_sz
-            acc["sz_sz_outer"] += sz_sz
-            acc["y2sum"] += (y2_b * vf).sum()
-            nuni += (n_uni * valid_b).sum()
-            nsub += (n_sub * valid_b).sum()
-            resets += counts
-            ss_all[i] = pack_bits_lane(ss2) if cfg.packed_states else ss2
-            lpj_all[i] = lpj2
+            with tracing.span("em_step.suffstat", dev):
+                if cfg.allzero:  # the permanent all-zero state (evo_tpu sssc.py:467-469)
+                    lpj2 = torch.cat([-0.5 * pre["sigma2_inv"] * y2_b[:, None], lpj2], 1)
+                vf = valid_b.to(dt)
+                Fsum += (shifted_logsumexp(lpj2) * vf).sum()
+                rs = (posterior_weights(lpj2) * vf[:, None])[:, cfg.S_perm:].contiguous()
+                xpt_sz, xpt_s, xpt_ss, xpt_szsz, s_sz, sz_sz = suffstat_fn(
+                    ss2, rs, Wty_b, G_b, params.Psi, params.mus, pre["sigma2_inv"])
+                y_m = y_b
+                if do_reconstruction:
+                    est = xpt_sz @ params.W.T
+                    y_rec_all[i] = torch.where(data.x[i], y_b, est)
+                    if data.incomplete:
+                        y_m = y_rec_all[i]
+                        acc["trWszszW"] += (data.x_infr[i] * est * est).sum()
+                acc["Wp"] += y_m.T @ xpt_sz
+                acc["xpt_s"] += xpt_s.sum(0)
+                acc["xpt_sz"] += xpt_sz.sum(0)
+                acc["xpt_ss"] += xpt_ss
+                acc["xpt_szsz"] += xpt_szsz
+                acc["s_sz_outer"] += s_sz
+                acc["sz_sz_outer"] += sz_sz
+                acc["y2sum"] += (y2_b * vf).sum()
+                nuni += (n_uni * valid_b).sum()
+                nsub += (n_sub * valid_b).sum()
+                resets += counts
+                ss_all[i] = pack_bits_lane(ss2) if cfg.packed_states else ss2
+                lpj_all[i] = lpj2
 
-        pre, acc, tot = sum_over_ranks(self, params, data, pre, acc,
-                                       dict(Fsum=Fsum, nuni=nuni, nsub=nsub, resets=resets))
-        new_params, guards = self._m_step_finalize(params, acc, pre, data.incomplete, cfg)
-        N, resets = pre["N"], tot["resets"]
-        zero = torch.zeros((), dtype=torch.int64, device=dev)
-        stats = StepStats(
-            F=pre["ljc"] + tot["Fsum"] / N, S_nunique=tot["nuni"] / N, S_sub=tot["nsub"] / N,
-            n_reset_nan=resets[0], n_reset_small=resets[1], n_reset_inf=resets[2],
-            n_guard_sigma_floor=zero, **guards)
+        with tracing.span("em_step.mstep", dev):
+            pre, acc, tot = sum_over_ranks(self, params, data, pre, acc,
+                                           dict(Fsum=Fsum, nuni=nuni, nsub=nsub, resets=resets))
+            new_params, guards = self._m_step_finalize(params, acc, pre, data.incomplete, cfg)
+            N, resets = pre["N"], tot["resets"]
+            zero = torch.zeros((), dtype=torch.int64, device=dev)
+            stats = StepStats(
+                F=pre["ljc"] + tot["Fsum"] / N, S_nunique=tot["nuni"] / N, S_sub=tot["nsub"] / N,
+                n_reset_nan=resets[0], n_reset_small=resets[1], n_reset_inf=resets[2],
+                n_guard_sigma_floor=zero, **guards)
         return new_params, EState(ss=ss_all, lpj=lpj_all), stats, y_rec_all
 
     # ---------------------------------------------------------------- M-step

@@ -1,0 +1,10 @@
+"""em_step.ea_host_ms: the host's self time in the em_step.ea spans
+(evolve_states_block: selection, mutation and the dedup keys; the
+children's lpj is an em_step.lpj span inside), ms per epoch of the traced
+window."""
+
+from portbench.programspans import self_ms
+
+
+def read(ctx):
+    return self_ms(ctx, "em_step.ea", device=False)

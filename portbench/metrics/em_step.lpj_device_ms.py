@@ -1,0 +1,11 @@
+"""em_step.lpj_device_ms: the card's self time (stream time between the
+span's CUDA events, less its children's) in the em_step.lpj spans
+(block_gram and every lpj_block call: the lpj of K^(n) and, nested in the
+EA, of its children, with the kernel call and reset_lpj), ms per epoch of
+the traced window."""
+
+from portbench.programspans import self_ms
+
+
+def read(ctx):
+    return self_ms(ctx, "em_step.lpj", device=True)

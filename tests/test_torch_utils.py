@@ -156,10 +156,10 @@ def test_tracing_roundtrip(tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
     tracing.set_tracefile("trace-%04d.txt")
 
-    @tracing.traced
     def work():
-        tracing.tracepoint("inside")
-        return 42
+        with tracing.span("work"):
+            tracing.tracepoint("inside")
+            return 42
 
     assert work() == 42
     tracing.close("traces.tgz")
@@ -186,9 +186,11 @@ def test_tracing_archive_is_gzip_and_merges(tmp_path, monkeypatch):
 
 def test_device_trace_writes_a_chrome_trace(tmp_path):
     logdir = str(tmp_path / "dt")
+    tracing.set_tracefile(str(tmp_path / "trace.txt"))
     with tracing.device_trace(logdir):
-        with tracing.annotate("my_region"):
+        with tracing.span("my_region"):
             (torch.ones(64, 64) @ torch.ones(64, 64)).sum()
+    tracing.close(archive=None)
     (name,) = os.listdir(logdir)
     assert name.startswith("trace-") and name.endswith(".json")
     with open(os.path.join(logdir, name)) as f:
