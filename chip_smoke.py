@@ -122,6 +122,13 @@ Phases, one line each with its seconds:
                standard_init, check_params, step) through
                evo_tpu_torch.compat: 15 steps, F rising, the compat's exact
                free energy equal to the core model's
+ 24. epoch_graph  EBSC EA epochs whose blocks replay CUDA graphs of their
+               phases against the same epochs run eagerly, at phase 5's
+               widths in 4 blocks of 4,096 (the cell's shapes, an uneven last
+               block, packed states): 3 epochs bit for bit alike, launch
+               counts alike, one capture each; incomplete data and exact mode
+               run eagerly; host ms per epoch of both paths
+`python3 chip_smoke.py epoch_graph` runs phases 1, 2 and 24 alone.
 The kernels phase also holds the ES3C kernels, the masked ones (incomplete
 data) included, against their plain versions at those paths' shapes, and
 the packed-input EBSC kernels against their plain versions and, bit for
@@ -159,6 +166,7 @@ process but nvcc, nvidia-smi and the two parallel phases' workers (two at
 most at a time, each under a wall-clock limit).
 """
 
+import contextlib
 import dataclasses
 import hashlib
 import json
@@ -171,6 +179,7 @@ import tarfile
 import tempfile
 import threading
 import time
+from unittest import mock
 
 import numpy as np
 import torch
@@ -179,7 +188,8 @@ from evo_tpu_torch import BSC, SSSC, SSSCParams, init_states, make_data
 from evo_tpu_torch.apps import bars, feature_learning, images
 from evo_tpu_torch.apps.common import chunking_kwargs
 from evo_tpu_torch.apps.training import EMTrainer
-from evo_tpu_torch.models.base import block_gram, em_steps, epoch_generator
+from evo_tpu_torch.models import block_graphs
+from evo_tpu_torch.models.base import StepStats, block_gram, em_steps, epoch_generator
 from evo_tpu_torch.ops import _build
 from evo_tpu_torch.ops.bitpack import (
     n_bytes_lane, pack_bits_lane, pack_bits_u8, unpack_bits_lane, unpack_bits_u8)
@@ -202,6 +212,7 @@ from evo_tpu_torch.models.sssc import sssc_lpj_wide
 from evo_tpu_torch.prepost import MultiDimOverlappingPatches, psnr
 from evo_tpu_torch.prepost.device_merge import DeviceMerger
 from evo_tpu_torch.utils.checkpoint import load_checkpoint
+from evo_tpu_torch.utils import tracing
 from evo_tpu_torch.utils.datalog import DataLog, StoreToTxt
 from evo_tpu_torch.variational.state_init import EState
 
@@ -219,6 +230,8 @@ PEAKS = {"NVIDIA H100 80GB HBM3": (67e12, 16.75e12, 3.35e12),
 N_BLOCKS, B, H, S, D = 25, 4096, 256, 64, 256
 N_PARENTS, N_CHILDREN, N_GENERATIONS = 10, 1, 1
 WARM_EPOCHS, TIMED_EPOCHS = 1, 3
+# the epoch_graph phase: the main path's block shape, fewer blocks
+GRAPH_BLOCKS, GRAPH_EPOCHS = 4, 3
 # the kernels of evo_tpu_torch/csrc, as the profiler names them
 PORT_KERNELS = ("bsc_lpj_kernel", "bsc_lpj_dense", "bsc_suffstat_partial", "bsc_suffstat_reduce",
                 "sssc_lpj_kernel", "sssc_suffstat_partial", "sssc_suffstat_reduce")
@@ -2471,6 +2484,125 @@ def parallel_apps(launches, inp):
     return total
 
 
+def graph_problem(n_rows):
+    """(model, data, params): the main path's widths on ``n_rows`` rows of
+    synthetic data made on the host from seed 5 (as ``primary_setup`` makes
+    it) in GRAPH_BLOCKS blocks, the last padded as make_data pads it for the
+    apps, and Theta^0 from seed 0."""
+    rng = np.random.default_rng(5)
+    W_gen = rng.standard_normal((D, H)).astype(np.float32)
+    s_gen = rng.random((n_rows, H)) <= 2.0 / H
+    Y = s_gen.astype(np.float32) @ W_gen.T + rng.standard_normal((n_rows, D)).astype(np.float32)
+    model = BSC(D=D, H=H, device=DEVICE)
+    data = make_data(Y, n_blocks=GRAPH_BLOCKS, device=DEVICE)
+    return model, data, model.standard_init(data, seed=0, y_host=Y)
+
+
+def graph_epochs(model, data, cfg, estate, params, launches, n_epochs=GRAPH_EPOCHS, rec=False):
+    """``n_epochs`` epochs from the same inputs, each em_step in a traced
+    span (epoch e draws from epoch_generator(11, e)).  Returns (params,
+    estate, stats) per epoch, the span's counters per epoch, the launch
+    counts, the host ms per epoch until em_step returned and until the card
+    finished, and the peak memory of the epochs after the first above what
+    was allocated before them (bytes)."""
+    tmp = tempfile.mkdtemp(prefix="epoch_graph-")
+    tracing.set_tracefile(os.path.join(tmp, "trace.txt"))
+    launches.reset()
+    out, host_ms, card_ms, base = [], [], [], 0
+    for e in range(n_epochs):
+        if e == 1:
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with tracing.span("em_step"):
+            params, estate, stats, _ = model.em_step(params, estate, data,
+                                                     epoch_generator(11, e, DEVICE), cfg,
+                                                     do_reconstruction=rec)
+        host_ms.append(1e3 * (time.perf_counter() - t))
+        torch.cuda.synchronize()
+        card_ms.append(1e3 * (time.perf_counter() - t))
+        out.append((params, estate, stats))
+    peak = torch.cuda.max_memory_allocated() - base
+    tracing.close(archive=None)
+    counts = [s.counts for s in tracing.records().spans if s.name == "em_step"]
+    return out, counts, launches.counts(), host_ms, card_ms, peak
+
+
+def same_epochs(label, graphed, eager):
+    """Raise unless every epoch's K^(n), lpj, Theta and stats of the
+    graphed run equal the eager run's bit for bit; print the largest
+    relative gap of each leaf that differs."""
+    for e, ((pg, eg, sg), (pe, ee, se)) in enumerate(zip(graphed, eager)):
+        leaves = [("K", eg.ss, ee.ss), ("lpj", eg.lpj, ee.lpj)]
+        leaves += [(f"theta.{k}", v, getattr(pe, k)) for k, v in vars(pg).items()]
+        leaves += [(f"stats.{f.name}", getattr(sg, f.name), getattr(se, f.name))
+                   for f in dataclasses.fields(StepStats)]
+        bad = {name: float((a.double() - b.double()).abs().max() / b.double().abs().max().clamp(
+            min=1e-300)) for name, a, b in leaves if not torch.equal(a, b)}
+        if bad:
+            raise AssertionError(f"{label}: epoch {e}: graphed differs from eager in {bad}")
+
+
+def epoch_graph(launches):
+    """EBSC EA epochs with the blocks' phases replayed from CUDA graphs
+    against the same epochs run eagerly (``block_graphs.engages`` patched
+    to say no), from the same Theta^0, K^0, data and epoch generators, at
+    the main path's widths in GRAPH_BLOCKS blocks of B: the cell's shapes,
+    an uneven last block (3 padding rows) and packed states.  K^(n), lpj,
+    Theta and every stat bit for bit alike each epoch, the launch counts
+    alike, one capture per shape (in the first epoch, whose first block
+    runs eagerly); then incomplete data with reconstruction and exact mode
+    run eagerly.  Prints host ms per epoch of both paths and the peak
+    memory above the epochs' inputs."""
+    cfg, estate = init_states(N=GRAPH_BLOCKS * B, S=S, H=H, no_parents=N_PARENTS,
+                              no_children=N_CHILDREN, no_generations=N_GENERATIONS,
+                              n_blocks=GRAPH_BLOCKS, seed=0, device=DEVICE)
+    packed = (dataclasses.replace(cfg, packed_states=True),
+              EState(ss=pack_bits_lane(estate.ss), lpj=estate.lpj))
+    nb = GRAPH_BLOCKS
+    want = [{"em_step.blocks": nb, "em_step.graph_blocks": nb - 1, "em_step.graph_captures": 1}]
+    want += [{"em_step.blocks": nb, "em_step.graph_blocks": nb}] * (GRAPH_EPOCHS - 1)
+    for label, n_rows, cfg_c, est in (("cell", nb * B, cfg, estate),
+                                      ("uneven", nb * B - 3, cfg, estate),
+                                      ("packed", nb * B, *packed)):
+        _, data, params = graph_problem(n_rows)
+        runs = {}
+        for path in ("eager", "graphed"):
+            off = mock.patch.object(block_graphs, "engages", lambda *a: False)
+            with off if path == "eager" else contextlib.nullcontext():
+                runs[path] = graph_epochs(BSC(D=D, H=H, device=DEVICE), data, cfg_c, est, params,
+                                          launches)
+        (g_out, g_counts, g_launch, g_host, g_card, g_peak) = runs["graphed"]
+        (e_out, e_counts, e_launch, e_host, e_card, e_peak) = runs["eager"]
+        same_epochs(label, g_out, e_out)
+        if g_counts != want or e_counts != [{"em_step.blocks": nb}] * GRAPH_EPOCHS:
+            raise AssertionError(f"{label}: counters graphed {g_counts}, eager {e_counts}")
+        if g_launch != e_launch:
+            raise AssertionError(f"{label}: launches graphed {g_launch}, eager {e_launch}")
+        say(f"{label}: {nb} blocks x {B} rows, packed {cfg_c.packed_states}: bit for bit alike "
+            f"over {GRAPH_EPOCHS} epochs; F {[round(float(s.F), 4) for *_, s in g_out]}")
+        say(f"  host ms per epoch until em_step returned: eager "
+            f"{[round(m, 2) for m in e_host]}, graphed {[round(m, 2) for m in g_host]} "
+            f"(first: the capture); until the card finished: eager "
+            f"{[round(m, 2) for m in e_card]}, graphed {[round(m, 2) for m in g_card]}")
+        say(f"  peak memory above the inputs, epochs 2-{GRAPH_EPOCHS}: eager "
+            f"{e_peak / 2**20:.1f} MiB, graphed {g_peak / 2**20:.1f} MiB; on {CARD['smi']}")
+        del runs, g_out, e_out
+    # incomplete data (with reconstruction) and exact mode stay eager
+    Y = bars_data(10, 4096, seed=2)
+    Y_missing = np.where(np.random.default_rng(3).random(Y.shape) < 0.15, np.nan, Y)
+    for label, Yc, S_c, rec in (("incomplete", Y_missing, 20, True), ("exact", Y, 2**10, False)):
+        model = BSC(D=Y.shape[1], H=10, device=DEVICE)
+        data = make_data(Yc, n_blocks=2, device=DEVICE)
+        cfg_c, est = init_states(N=4096, S=S_c, H=10, n_blocks=2, device=DEVICE)
+        counts = graph_epochs(model, data, cfg_c, est, model.standard_init(data, seed=1, y_host=Yc),
+                              launches, n_epochs=2, rec=rec)[1]
+        if counts != [{"em_step.blocks": 2}] * 2 or model.__dict__.get("_graphs") is not None:
+            raise AssertionError(f"{label}: the blocks did not run eagerly: {counts}")
+        say(f"{label}: eager, as it should be (counters {counts[0]})")
+
+
 def compat(launches):
     """The reference driver pattern (tests/test_compat.py:11-33: the bars
     test, init_states, standard_init, check_params, step) on the card
@@ -2538,7 +2670,14 @@ class Launches:
         return got
 
 
-def main():
+def main(argv=()):
+    """Every phase in order; with phase names in ``argv`` (of STANDALONE)
+    only device, build and those."""
+    unknown = set(argv) - set(STANDALONE)
+    if unknown:
+        print(f"chip_smoke: no standalone phase {sorted(unknown)}; "
+              f"phases that run alone: {sorted(STANDALONE)}", file=sys.stderr)
+        return 2
     timer = threading.Timer(DEADLINE_S, _watchdog)
     timer.daemon = True
     timer.start()
@@ -2566,6 +2705,15 @@ def main():
                 say(f"{fn}: {ln.split('info    :')[-1].strip()}")
         say(f"nvcc, all sources in one call: {info['seconds']:.1f} s")
     launches = Launches()
+    if argv:
+        for name in argv:
+            with Phase(name):
+                STANDALONE[name](launches)
+        print(json.dumps({"ok": True, "phases": list(argv), "device": {
+            "platform": "gpu", "kind": CARD["name"], "count": torch.cuda.device_count()}}),
+            flush=True)
+        timer.cancel()
+        return 0
     with Phase("kernels"):
         rows = check_kernels(DEVICE)
         rows.update(check_sssc_kernels(DEVICE, torch.Generator().manual_seed(1)))
@@ -2639,6 +2787,8 @@ def main():
         add_counts(apps, wide(launches, Y_fl))
     with Phase("compat"):
         add_counts(apps, compat(launches))
+    with Phase("epoch_graph"):
+        epoch_graph(launches)
 
     add_counts(apps, par)  # the workers' launches
     add_counts(apps, par_apps)
@@ -2690,5 +2840,8 @@ def main():
     return 0
 
 
+# the phases that run alone: python3 chip_smoke.py <phase> ...
+STANDALONE = {"epoch_graph": epoch_graph}
+
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -13,11 +13,20 @@ block the lpj of K^(n) and of each generation's children go through the
 ``bsc_lpj`` kernel (which also emits the dedup keys), the merged states'
 sufficient statistics through the ``bsc_suffstat`` kernel, and the rest is
 plain PyTorch on the same device.  Its phases are tracing spans
-(``utils.tracing``; no-ops unless a trace file is open), the same in
-``SSSC``: ``em_step.lpj`` (``block_gram`` and every lpj, the children's
-nested in the EA's), ``em_step.ea``, ``em_step.merge``,
-``em_step.suffstat`` (F, responsibilities, the suffstat kernel,
-reconstruction and M-step sums) and, after the blocks, ``em_step.mstep``.
+(``utils.tracing``; no-ops unless a trace file is open), as in ``SSSC``:
+``em_step.lpj`` (``block_gram`` and K^(n)'s lpj; run eagerly, the
+children's lpj too, nested in the EA's), ``em_step.ea``,
+``em_step.merge``, ``em_step.suffstat`` (F, responsibilities, the suffstat
+kernel, reconstruction and M-step sums) and, after the blocks,
+``em_step.mstep``.
+
+On a CUDA device, on complete data, at the lpj kernel's widths and in EA
+epochs without reconstruction (``block_graphs.engages``), each phase of a
+block is captured once as a CUDA graph and replayed in every later block
+(``block_graphs.PhaseGraphs``): the host issues four replays a block in
+place of the chain of launches, and the children's lpj runs inside the
+EA's replay.  The ops, their order and the draws are those of the eager
+path.  The M-step stays eager: its inverse checks its result on the host.
 
 With ``EAConfig.packed_states`` the state sets stay lane-major bit-packed
 through the whole epoch, at every H (evo_tpu needs H % 32 == 0 for this on
@@ -59,12 +68,14 @@ from __future__ import annotations
 
 import dataclasses
 import math
+from types import SimpleNamespace
 from typing import Tuple
 
 import numpy as np
 import torch
 
 from evo_tpu_torch._device import resolve_device
+from evo_tpu_torch.models import block_graphs
 from evo_tpu_torch.models.base import (
     Data,
     StepStats,
@@ -93,6 +104,9 @@ from evo_tpu_torch.variational.state_init import EState, full_state_matrix
 from evo_tpu_torch.variational.varykn import merge_states
 
 PARAM_TOL = 1e-5  # reference noise_policy bounds (_models.py:47-52)
+# the kernels' launch counters, which a replayed block advances as an eager one does
+LAUNCH_COUNTERS = ((bsc_lpj, "launches"), (bsc_lpj, "packed_launches"),
+                   (bsc_suffstat, "launches"), (bsc_suffstat, "packed_launches"))
 
 
 @dataclasses.dataclass
@@ -229,48 +243,175 @@ class BSC:
                     piH=p.pi * self.H, ljc=ljc, **c)
 
     # ---------------------------------------------------------------- E-step
+    #
+    # A block's work is four phases, each a function of the namespace ``io``
+    # (the block's inputs, Theta and the precomputed scalars it reads, the
+    # outputs it writes for the next phase) and, in the last, of the epoch's
+    # accumulators ``acc``.  They run eagerly, or as replays of their
+    # captured CUDA graphs (``block_graphs``), under the same spans.
 
-    def _estep_block(self, generator, ss_b, G_b, Wty_b, y2_b, valid_b, pre,
-                     cfg: EAConfig, rows=None):
-        """Evolutionary E-step of one block [B, ...]: lpj of the current
-        K^(n), children by ``evolve_states_block``, the merge ``cfg`` asks
-        for.  A per-datapoint Gram G_b [B, H, H] (incomplete data) and a
-        wide model take ``lpj_gram``; the EA computes its own dedup keys
-        then and on packed states (the kernel's keys are those of unpacked
-        states).  ``rows`` (``distributed.block_rows``) makes the EA draw the
-        global block's random numbers and keep this rank's rows.  Returns
-        (ss2, lpj2, n_uni [B], n_sub [B], reset counts [3])."""
-        args = (Wty_b, y2_b, G_b, pre["pre1"], pre["pil_bar"])
-        packed = cfg.packed_states
-        gram_form = G_b.dim() == 3 or self.wide()
-        dev = ss_b.device
+    def _lpj(self, io, cfg: EAConfig, states):
+        """(lpj [B, K], dedup keys [B, K, W] or None, reset counts [3]) of
+        states [B, K, ...] like the block's, under its Gram.  A
+        per-datapoint Gram G [B, H, H] (incomplete data) and a wide model
+        take ``lpj_gram``; the EA computes its own dedup keys then and on
+        packed states (the kernel's keys are those of unpacked states)."""
+        if io.G.dim() == 3 or self.wide():
+            if cfg.packed_states:
+                states = unpack_bits_lane(states, self.H).to(torch.int8)
+            lpj, keys = lpj_gram(states, io.Wty, io.y2, io.G, io.pre1, io.pil_bar), None
+        elif cfg.exact or cfg.packed_states:
+            lpj, keys = bsc_lpj(states, io.Wty, io.y2, io.G, io.pre1, io.pil_bar), None
+        else:
+            lpj, keys = bsc_lpj(states, io.Wty, io.y2, io.G, io.pre1, io.pil_bar,
+                                emit_keys=True)
+        lpj, counts = reset_lpj(lpj, valid=io.valid)
+        return lpj, keys, torch.stack(counts)
 
-        def lpj_block(states):
-            with tracing.span("em_step.lpj", dev):
-                if gram_form:
-                    if packed:
-                        states = unpack_bits_lane(states, self.H).to(torch.int8)
-                    lpj, keys = lpj_gram(states, *args), None
-                elif cfg.exact or packed:
-                    lpj, keys = bsc_lpj(states, *args), None
-                else:
-                    lpj, keys = bsc_lpj(states, *args, emit_keys=True)
-                lpj, counts = reset_lpj(lpj, valid=valid_b)
-                return lpj, keys, torch.stack(counts)
-
-        lpj_K, ss_keys, counts = lpj_block(ss_b)
+    def _lpj_phase(self, io, cfg: EAConfig):
+        """``block_gram`` and the lpj of the current K^(n); in exact mode
+        also the E-step's results (K^(n) kept, nothing new)."""
+        io.G, io.Wty, io.y2 = block_gram(io.W, io.y, io.x_infr, io.incomplete)
+        io.lpj_K, io.keys_K, io.counts = self._lpj(io, cfg, io.ss)
         if cfg.exact:
-            zeros = torch.zeros(ss_b.shape[0], dtype=torch.int64, device=dev)
-            return ss_b, lpj_K, zeros, zeros, counts
-        with tracing.span("em_step.ea", dev):
-            children, child_lpj, new_unique, child_lpj_raw, aux = evolve_states_block(
-                ss_b, lpj_K, lpj_block, cfg, pre["piH"], generator, ss_dkeys=ss_keys,
-                rows=rows)
-            counts = counts + sum(aux)
-        with tracing.span("em_step.merge", dev):
-            ss2, lpj2, n_uni, n_sub, _ = merge_states(cfg, ss_b, lpj_K, children, child_lpj,
-                                                      new_unique, child_lpj_raw)
-        return ss2, lpj2, n_uni, n_sub, counts
+            zeros = torch.zeros(io.ss.shape[0], dtype=torch.int64, device=io.ss.device)
+            io.ss2, io.lpj2, io.n_uni, io.n_sub = io.ss, io.lpj_K, zeros, zeros
+
+    def _ea_phase(self, io, cfg: EAConfig, generator, rows):
+        """Children by ``evolve_states_block``, their lpj (eagerly an
+        ``em_step.lpj`` span nested in the EA's).  ``rows``
+        (``distributed.block_rows``) makes the EA draw the global block's
+        random numbers and keep this rank's rows."""
+        def lpj_block(states):
+            with tracing.span("em_step.lpj", io.dev):
+                return self._lpj(io, cfg, states)
+
+        io.children, io.child_lpj, io.new_unique, io.child_lpj_raw, aux = evolve_states_block(
+            io.ss, io.lpj_K, lpj_block, cfg, io.piH, generator, ss_dkeys=io.keys_K, rows=rows)
+        io.counts = io.counts + sum(aux)
+
+    def _merge_phase(self, io, cfg: EAConfig):
+        """The merge ``cfg`` asks for: the new K^(n) and its lpj, and the
+        counters n_uni [B], n_sub [B]."""
+        io.ss2, io.lpj2, io.n_uni, io.n_sub, _ = merge_states(
+            cfg, io.ss, io.lpj_K, io.children, io.child_lpj, io.new_unique, io.child_lpj_raw)
+
+    def _suffstat_phase(self, io, acc, cfg: EAConfig):
+        """F, responsibilities, ``bsc_suffstat``, the reconstruction into
+        ``io.y_rec`` (unless None) and the M-step sums into ``acc``; the
+        stored lpj (the all-zero state's first with ``allzero``) is
+        ``io.lpj_full``."""
+        S_perm, W = cfg.S_perm, io.W
+        dt = W.dtype
+        y_b, valid_b, ss2, lpj2 = io.y, io.valid, io.ss2, io.lpj2
+        lpj_full = torch.cat([io.pre1 * io.y2[:, None], lpj2], 1) if S_perm else lpj2
+        vf = valid_b.to(dt)
+        acc.Fsum += (shifted_logsumexp(lpj_full) * vf).sum()
+        r = posterior_weights(lpj_full) * vf[:, None]
+        rs = r[:, S_perm:].contiguous()
+        rho, s_abs, Wq_b = bsc_suffstat(ss2, rs, H=self.H)
+        acc.Wq += Wq_b
+        acc.pies += rho.sum(dim=0)
+        if io.y_rec is not None:
+            # posterior-predictive mean (reference _models.py:614-665)
+            sf = unpack_bits_lane(ss2, self.H) if cfg.packed_states else ss2
+            means = sf.to(dt) @ W.T  # [B, S, D]
+            io.y_rec.copy_(torch.where(io.x, y_b, (rs[:, None, :] @ means)[:, 0]))
+        if io.incomplete:
+            # sum_s r ||m (y_rec - W s)||^2 from the reconstruction
+            y_rec, m = io.y_rec, io.x_infr
+            dy = (y_rec[:, None, :] - means) * m[:, None, :]
+            acc.sig += (rs * (dy * dy).sum(dim=-1)).sum()
+            if S_perm:
+                acc.sig += (r[:, 0] * (y_rec * y_rec * m).sum(dim=-1)).sum()
+            acc.Wp += rho.T @ y_rec
+        else:
+            # sum_s r ||y - W s||^2 recovered from the lpj; reset-clamped
+            # values would poison it, so they are masked out (their
+            # responsibility is ~0 anyway)
+            resid2 = torch.clamp((lpj2 - io.pil_bar * s_abs) / io.pre1, min=0.0)
+            acc.sig += torch.where(lpj2 > 0.5 * eps_lpj(dt), rs * resid2, 0.0).sum()
+            if S_perm:
+                acc.sig += (r[:, 0] * io.y2).sum()
+            acc.Wp += rho.T @ y_b
+        acc.nuni += (io.n_uni * valid_b).sum()
+        acc.nsub += (io.n_sub * valid_b).sum()
+        acc.resets += io.counts
+        io.lpj_full = lpj_full
+
+    def _phases(self, io, acc, cfg: EAConfig, generator, rows):
+        """[(span name, phase of no argument)] of a block; exact mode has no
+        EA and no merge."""
+        phases = [("em_step.lpj", lambda: self._lpj_phase(io, cfg))]
+        if not cfg.exact:
+            phases += [("em_step.ea", lambda: self._ea_phase(io, cfg, generator, rows)),
+                       ("em_step.merge", lambda: self._merge_phase(io, cfg))]
+        phases.append(("em_step.suffstat", lambda: self._suffstat_phase(io, acc, cfg)))
+        return phases
+
+    def _accumulators(self, dt, dev) -> SimpleNamespace:
+        def zeros(shape, dtype=dt):
+            return torch.zeros(shape, dtype=dtype, device=dev)
+
+        return SimpleNamespace(
+            Wp=zeros((self.H, self.D)), Wq=zeros((self.H, self.H)), pies=zeros((self.H,)),
+            sig=zeros(()), Fsum=zeros(()), nuni=zeros((), torch.int64),
+            nsub=zeros((), torch.int64), resets=zeros((3,), torch.int64))
+
+    def _block_graphs(self, estate: EState, data: Data, cfg: EAConfig, rows, dt, dev):
+        """The model's ``PhaseGraphs`` for this device, these block shapes
+        and dtypes, ``cfg`` and ``rows``: the ones kept on the model, or new
+        ones (not yet captured) in their place."""
+        key = (dev, tuple(estate.ss.shape[1:]), estate.ss.dtype, tuple(data.y.shape[1:]),
+               data.y.dtype, dt, cfg, rows)
+        graphs = self.__dict__.get("_graphs")
+        if graphs is not None and graphs.key == key:
+            return graphs
+        object.__setattr__(self, "_graphs", None)  # free the old graphs and buffers first
+        B, D = data.y.shape[1:]
+        io = SimpleNamespace(
+            dev=dev, incomplete=False, x=None, x_infr=None, y_rec=None,
+            y=torch.empty((B, D), dtype=data.y.dtype, device=dev),
+            valid=torch.empty((B,), dtype=torch.bool, device=dev),
+            ss=torch.empty(estate.ss.shape[1:], dtype=estate.ss.dtype, device=dev),
+            W=torch.empty((D, self.H), dtype=dt, device=dev),
+            pre1=torch.empty((), dtype=dt, device=dev),
+            pil_bar=torch.empty((), dtype=dt, device=dev),
+            piH=torch.empty((), dtype=dt, device=dev))
+        graphs = block_graphs.PhaseGraphs(key, dev, io, self._accumulators(dt, dev),
+                                          LAUNCH_COUNTERS)
+        object.__setattr__(self, "_graphs", graphs)
+        return graphs
+
+    @staticmethod
+    def _load_block(io, i, data: Data, estate: EState, y_rec_all, static: bool):
+        """Block ``i``'s inputs into ``io``: as views, or (``static``)
+        copied into its static buffers."""
+        if static:
+            io.y.copy_(data.y[i])
+            io.valid.copy_(data.row_valid[i])
+            io.ss.copy_(estate.ss[i])
+            return
+        io.y, io.valid, io.ss = data.y[i], data.row_valid[i], estate.ss[i]
+        io.x, io.x_infr = data.x[i], data.x_infr[i]
+        io.y_rec = None if y_rec_all is None else y_rec_all[i]
+
+    def _run_block(self, i, phases, io, data, estate, ss_all, lpj_all, y_rec_all, graphs):
+        """Block ``i``'s phases under their spans, eagerly or (``graphs``
+        captured) as replays; its states and their lpj go into
+        ``ss_all[i]`` and ``lpj_all[i]``."""
+        replay = graphs is not None and graphs.captured
+        for k, (name, phase) in enumerate(phases):
+            with tracing.span(name, io.dev):
+                if k == 0:
+                    self._load_block(io, i, data, estate, y_rec_all, graphs is not None)
+                if replay:
+                    graphs.replay(k)
+                else:
+                    phase()
+                if k == len(phases) - 1:
+                    ss_all[i] = io.ss2
+                    lpj_all[i] = io.lpj_full
 
     # ---------------------------------------------------------------- epoch
 
@@ -292,76 +433,65 @@ class BSC:
         ``generator`` (on the data's device) drives every random draw of
         the EA; under a process group every rank passes the same one.
         There the statistics, counters and F are summed over the ranks in
-        one all_reduce after the blocks; without a group nothing is issued."""
+        one all_reduce after the blocks; without a group nothing is issued.
+
+        Where ``block_graphs.engages`` (a CUDA device, complete data, the
+        lpj kernel's widths, an EA epoch without reconstruction) the blocks
+        replay CUDA graphs of their phases, captured in the first such
+        epoch and kept on the model for these shapes, dtypes, ``cfg`` and
+        ranks: the same ops in the same order, with the same draws.  The
+        counters ``em_step.blocks``, ``em_step.graph_blocks`` (blocks
+        replayed) and ``em_step.graph_captures`` go to the innermost open
+        tracing span."""
         check_em_step(data, do_reconstruction)
         params = self.check_params(params)
         pre = self._precompute(params, data)
         rows = distributed.block_rows(data.y.shape[1])
         dt, dev = params.W.dtype, params.W.device
-        W = params.W
-        Wp = torch.zeros((self.H, self.D), dtype=dt, device=dev)
-        Wq = torch.zeros((self.H, self.H), dtype=dt, device=dev)
-        pies = torch.zeros((self.H,), dtype=dt, device=dev)
-        sig = torch.zeros((), dtype=dt, device=dev)
-        Fsum = torch.zeros((), dtype=dt, device=dev)
-        nuni = torch.zeros((), dtype=torch.int64, device=dev)
-        nsub = torch.zeros((), dtype=torch.int64, device=dev)
-        resets = torch.zeros((3,), dtype=torch.int64, device=dev)
+        graphs = None
+        if block_graphs.engages(dev, data.incomplete, self.H, cfg.exact, do_reconstruction):
+            graphs = self._block_graphs(estate, data, cfg, rows, dt, dev)
+            io = graphs.io
+            io.W.copy_(params.W)
+            for name in ("pre1", "pil_bar", "piH"):
+                getattr(io, name).copy_(pre[name])
+            acc, gen = graphs.acc, graphs.begin_epoch(generator)
+        else:
+            # the graphs read W from a contiguous copy; cuBLAS may sum otherwise
+            # in the transposed layout that the M-step returns
+            io = SimpleNamespace(dev=dev, incomplete=data.incomplete, W=params.W.contiguous(),
+                                 pre1=pre["pre1"], pil_bar=pre["pil_bar"], piH=pre["piH"])
+            acc, gen = self._accumulators(dt, dev), generator
         ss_all = torch.empty_like(estate.ss)
         lpj_all = torch.empty_like(estate.lpj)
         y_rec_all = torch.empty_like(data.y) if do_reconstruction else None
-        floor = 0.5 * eps_lpj(dt)
-        S_perm = cfg.S_perm
-
+        phases = self._phases(io, acc, cfg, gen, rows)
+        replayed = captures = 0
         for i in range(data.n_blocks):
-            y_b, valid_b = data.y[i], data.row_valid[i]
-            with tracing.span("em_step.lpj", dev):
-                G_b, Wty_b, y2_b = block_gram(W, y_b, data.x_infr[i], data.incomplete)
-            ss2, lpj2, n_uni, n_sub, counts = self._estep_block(
-                generator, estate.ss[i], G_b, Wty_b, y2_b, valid_b, pre, cfg, rows)
-            with tracing.span("em_step.suffstat", dev):
-                lpj_full = torch.cat([pre["pre1"] * y2_b[:, None], lpj2], 1) if S_perm else lpj2
-                vf = valid_b.to(dt)
-                Fsum += (shifted_logsumexp(lpj_full) * vf).sum()
-                r = posterior_weights(lpj_full) * vf[:, None]
-                rs = r[:, S_perm:].contiguous()
-                rho, s_abs, Wq_b = bsc_suffstat(ss2, rs, H=self.H)
-                Wq += Wq_b
-                pies += rho.sum(dim=0)
-                if do_reconstruction:
-                    # posterior-predictive mean (reference _models.py:614-665)
-                    sf = unpack_bits_lane(ss2, self.H) if cfg.packed_states else ss2
-                    means = sf.to(dt) @ W.T  # [B, S, D]
-                    y_rec_all[i] = torch.where(data.x[i], y_b, (rs[:, None, :] @ means)[:, 0])
-                if data.incomplete:
-                    # sum_s r ||m (y_rec - W s)||^2 from the reconstruction
-                    y_rec = y_rec_all[i]
-                    m = data.x_infr[i]
-                    dy = (y_rec[:, None, :] - means) * m[:, None, :]
-                    sig += (rs * (dy * dy).sum(dim=-1)).sum()
-                    if S_perm:
-                        sig += (r[:, 0] * (y_rec * y_rec * m).sum(dim=-1)).sum()
-                    Wp += rho.T @ y_rec
-                else:
-                    # sum_s r ||y - W s||^2 recovered from the lpj; reset-clamped
-                    # values would poison it, so they are masked out (their
-                    # responsibility is ~0 anyway)
-                    resid2 = torch.clamp((lpj2 - pre["pil_bar"] * s_abs) / pre["pre1"], min=0.0)
-                    sig += torch.where(lpj2 > floor, rs * resid2, 0.0).sum()
-                    if S_perm:
-                        sig += (r[:, 0] * y2_b).sum()
-                    Wp += rho.T @ y_b
-                nuni += (n_uni * valid_b).sum()
-                nsub += (n_sub * valid_b).sum()
-                resets += counts
-                ss_all[i] = ss2
-                lpj_all[i] = lpj_full
+            args = (i, phases, io, data, estate, ss_all, lpj_all, y_rec_all, graphs)
+            if graphs is None:
+                self._run_block(*args)
+            elif graphs.captured:
+                self._run_block(*args)
+                replayed += 1
+            else:  # block 0 of the first graphed epoch: the warm-up, then the capture
+                graphs.warm_up(lambda: self._run_block(*args))
+                graphs.capture([phase for _, phase in phases])
+                captures += 1
+        if graphs is not None:
+            acc = graphs.end_epoch()
+        tracing.count("em_step.blocks", data.n_blocks)
+        if replayed:
+            tracing.count("em_step.graph_blocks", replayed)
+        if captures:
+            tracing.count("em_step.graph_captures", captures)
 
         with tracing.span("em_step.mstep", dev):
-            acc = dict(Wp=Wp, Wq=Wq, pies=pies, sigma=sig)
-            pre, acc, tot = sum_over_ranks(self, params, data, pre, acc,
-                                           dict(Fsum=Fsum, nuni=nuni, nsub=nsub, resets=resets))
-            new_params, guard = self._m_step_finalize(params, acc, pre, data.incomplete, cfg)
+            sums = dict(Wp=acc.Wp, Wq=acc.Wq, pies=acc.pies, sigma=acc.sig)
+            pre, sums, tot = sum_over_ranks(
+                self, params, data, pre, sums,
+                dict(Fsum=acc.Fsum, nuni=acc.nuni, nsub=acc.nsub, resets=acc.resets))
+            new_params, guard = self._m_step_finalize(params, sums, pre, data.incomplete, cfg)
             N, resets = pre["N"], tot["resets"]
             stats = StepStats(
                 F=pre["ljc"] + tot["Fsum"] / N, S_nunique=tot["nuni"] / N, S_sub=tot["nsub"] / N,

@@ -17,6 +17,8 @@ device profiler (counterpart: evo_tpu/utils/tracing.py).
   events.
 - ``count(name, n)`` adds the host integer ``n`` to the innermost open span.
 - ``tracepoint(name)`` records a single marker.
+- ``paused()`` records nothing in the block it encloses (a CUDA graph's
+  capture, which runs no work).
 
 Times are ``time.time_ns()``, the clock of torch.profiler's Chrome trace
 (``baseTimeNanoseconds + ts``).  The session stays in memory: ``records()``
@@ -287,6 +289,17 @@ def resolve():
                         s._last = None
         for a in (ids, begins, ends):
             del a[:done]
+
+
+@contextlib.contextmanager
+def paused():
+    """Spans, counters and markers record nothing in the enclosed block."""
+    global _on
+    was, _on = _on, False
+    try:
+        yield
+    finally:
+        _on = was
 
 
 def records() -> Optional[Records]:

@@ -18,6 +18,7 @@ evo_tpu's operator draws from its key:
 
 from __future__ import annotations
 
+import functools
 from itertools import combinations
 
 import torch
@@ -27,6 +28,16 @@ from evo_tpu_torch.variational.selection import stable_topk_idx
 
 def _n_pairs(P: int) -> int:
     return P * (P - 1) // 2
+
+
+@functools.lru_cache(maxsize=64)
+def _pair_index(P: int, device: torch.device):
+    """The first and second parents (ia, ib) of every unordered pair of P
+    parents, made once per P and device, so that a captured CUDA graph of
+    the EA finds them on the card."""
+    pairs = list(combinations(range(P), 2))
+    return (torch.tensor([p[0] for p in pairs], device=device),
+            torch.tensor([p[1] for p in pairs], device=device))
 
 
 def draw_noise(algorithm: str, B: int, P: int, C: int, H: int,
@@ -90,14 +101,12 @@ def cross(parents, n_children=None, noise=None, sparseness=None, p_bf=None):
     pair, interleaved (reference eas.py:103-125); ``noise`` holds the
     crossover points [B, n_pairs] in [1, H)."""
     B, P, H = parents.shape
-    pairs = list(combinations(range(P), 2))
-    ia = torch.tensor([p[0] for p in pairs], device=parents.device)
-    ib = torch.tensor([p[1] for p in pairs], device=parents.device)
+    ia, ib = _pair_index(P, parents.device)
     tail = torch.arange(H, device=parents.device) >= noise[..., None]  # [B, np, H]
     A, Bp = parents[:, ia], parents[:, ib]
     c1 = torch.where(tail, Bp, A)
     c2 = torch.where(tail, A, Bp)
-    return torch.stack([c1, c2], dim=2).reshape(B, 2 * len(pairs), H)
+    return torch.stack([c1, c2], dim=2).reshape(B, 2 * _n_pairs(P), H)
 
 
 def cross_randflip(parents, n_children=None, noise=None, sparseness=None, p_bf=None):
