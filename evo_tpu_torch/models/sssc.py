@@ -113,12 +113,25 @@ def wide_solves(ss, Wty, G, Psi, mus, s2inv):
     ``bad`` where Pinv is not finite (evo_tpu's rule) or either factor is
     singular.  Yields a dict per chunk: rows (into the flat [B K] states),
     b, A, a, wty (Wty[b]_A), u, lam_u, logdet, bad and the factors of M
-    (LU_M, piv_M); entries of bad states are garbage."""
+    (LU_M, piv_M); entries of bad states are garbage.
+
+    Counts on the innermost open span, from the groups' host shapes:
+    ``wide.groups`` (|s| groups), ``wide.chunks`` (the chunks, each two
+    batched factorizations), ``wide.states`` (the states solved, the empty
+    state not among them) and ``wide.n1``, ``wide.n2``, ``wide.n3`` (the
+    sums of n, n^2 and n^3 over them)."""
     B, K, H = ss.shape
     b_of = torch.arange(B * K, device=ss.device) // K
     for n, rows_n, A_n in active_groups(ss.reshape(B * K, H)):
+        m = rows_n.numel()
         step = max(1, WIDE_CHUNK_BYTES // (64 * n * n))
-        for c in range(0, rows_n.numel(), step):
+        tracing.count("wide.groups", 1)
+        tracing.count("wide.chunks", -(-m // step))
+        tracing.count("wide.states", m)
+        tracing.count("wide.n1", m * n)
+        tracing.count("wide.n2", m * n * n)
+        tracing.count("wide.n3", m * n ** 3)
+        for c in range(0, m, step):
             rows, A = rows_n[c:c + step], A_n[c:c + step]
             b = b_of[rows]
             a = mus[A]
@@ -147,21 +160,24 @@ def sssc_lpj_wide(ss, Wty, y2, G, Psi, mus, pil_bar, s2inv):
     with ||y - W_A a||^2 = y2 - 2 a.Wty_A + a^T G_AA a.  A bad state (see
     ``wide_solves``), or one whose lpj is not finite, is flagged and gets
     NaN, which ``reset_lpj`` floors (never +-inf, which it would make the
-    dominant lpj)."""
+    dominant lpj).  The call is the span ``wide.lpj``, with
+    ``wide_solves``'s counters."""
     B, K, _ = ss.shape
-    s2inv = torch.as_tensor(s2inv, dtype=Wty.dtype, device=Wty.device)
-    b_of = torch.arange(B * K, device=ss.device) // K
-    lpj = (-0.5 * s2inv * y2[b_of]).clone()  # the empty state
-    bad = torch.zeros(B * K, dtype=Wty.dtype, device=Wty.device)
-    for c in wide_solves(ss, Wty, G, Psi, mus, s2inv):
-        a, wty, u = c["a"], c["wty"], c["u"]
-        ynorm2 = y2[c["b"]] - 2.0 * (a * wty).sum(-1) + (a * (wty - u)).sum(-1)
-        val = (-0.5 * (c["logdet"] + s2inv * ynorm2 - s2inv * s2inv * (u * c["lam_u"]).sum(-1))
-               + pil_bar[c["A"]].sum(-1))
-        flag = c["bad"] | ~torch.isfinite(val)
-        lpj[c["rows"]] = torch.where(flag, float("nan"), val)
-        bad[c["rows"]] = flag.to(bad.dtype)
-    return lpj.reshape(B, K), bad.reshape(B, K)
+    with tracing.span("wide.lpj", ss.device):
+        s2inv = torch.as_tensor(s2inv, dtype=Wty.dtype, device=Wty.device)
+        b_of = torch.arange(B * K, device=ss.device) // K
+        lpj = (-0.5 * s2inv * y2[b_of]).clone()  # the empty state
+        bad = torch.zeros(B * K, dtype=Wty.dtype, device=Wty.device)
+        for c in wide_solves(ss, Wty, G, Psi, mus, s2inv):
+            a, wty, u = c["a"], c["wty"], c["u"]
+            ynorm2 = y2[c["b"]] - 2.0 * (a * wty).sum(-1) + (a * (wty - u)).sum(-1)
+            val = (-0.5 * (c["logdet"] + s2inv * ynorm2
+                           - s2inv * s2inv * (u * c["lam_u"]).sum(-1))
+                   + pil_bar[c["A"]].sum(-1))
+            flag = c["bad"] | ~torch.isfinite(val)
+            lpj[c["rows"]] = torch.where(flag, float("nan"), val)
+            bad[c["rows"]] = flag.to(bad.dtype)
+        return lpj.reshape(B, K), bad.reshape(B, K)
 
 
 def sssc_suffstat_wide(ss, rs, Wty, G, Psi, mus, s2inv):
@@ -171,25 +187,27 @@ def sssc_suffstat_wide(ss, rs, Wty, G, Psi, mus, s2inv):
     slab means kappa = s2inv M^-1 u + a and covariances lambda = M^-1 on
     the active units.  A bad state contributes nothing, and non-finite
     entries are 0 (evo_tpu's ``nan_to_num``).  The lambda shares are summed
-    per H^2 bin in f64, as in ``sssc_suffstat_plain``."""
+    per H^2 bin in f64, as in ``sssc_suffstat_plain``.  The call is the
+    span ``wide.suffstat``, with ``wide_solves``'s counters."""
     B, S, H = ss.shape
-    s2inv = torch.as_tensor(s2inv, dtype=Wty.dtype, device=Wty.device)
-    r = rs.reshape(B * S)
-    kappa = torch.zeros((B * S, H), dtype=Wty.dtype, device=Wty.device)
-    szsz = torch.zeros(H * H, dtype=torch.float64, device=Wty.device)
-    for c in wide_solves(ss, Wty, G, Psi, mus, s2inv):
-        rows, A, ok = c["rows"], c["A"], ~c["bad"]
-        n = A.shape[1]
-        eye = torch.eye(n, dtype=Wty.dtype, device=Wty.device).expand(rows.numel(), n, n)
-        lam = torch.linalg.lu_solve(c["LU_M"], c["piv_M"], eye)
-        kap = s2inv * c["lam_u"] + c["a"]
-        kappa[rows[:, None], A] = torch.nan_to_num(torch.where(ok[:, None], kap, 0.0),
-                                                   nan=0.0, posinf=0.0, neginf=0.0)
-        lam = torch.nan_to_num(torch.where(ok[:, None, None], lam, 0.0),
-                               nan=0.0, posinf=0.0, neginf=0.0)
-        flat = (A[:, :, None] * H + A[:, None, :]).flatten()
-        szsz.index_add_(0, flat, (r[rows, None, None] * lam).flatten().double())
-    return moments(ss.reshape(B * S, H), r, kappa, szsz, B)
+    with tracing.span("wide.suffstat", ss.device):
+        s2inv = torch.as_tensor(s2inv, dtype=Wty.dtype, device=Wty.device)
+        r = rs.reshape(B * S)
+        kappa = torch.zeros((B * S, H), dtype=Wty.dtype, device=Wty.device)
+        szsz = torch.zeros(H * H, dtype=torch.float64, device=Wty.device)
+        for c in wide_solves(ss, Wty, G, Psi, mus, s2inv):
+            rows, A, ok = c["rows"], c["A"], ~c["bad"]
+            n = A.shape[1]
+            eye = torch.eye(n, dtype=Wty.dtype, device=Wty.device).expand(rows.numel(), n, n)
+            lam = torch.linalg.lu_solve(c["LU_M"], c["piv_M"], eye)
+            kap = s2inv * c["lam_u"] + c["a"]
+            kappa[rows[:, None], A] = torch.nan_to_num(torch.where(ok[:, None], kap, 0.0),
+                                                       nan=0.0, posinf=0.0, neginf=0.0)
+            lam = torch.nan_to_num(torch.where(ok[:, None, None], lam, 0.0),
+                                   nan=0.0, posinf=0.0, neginf=0.0)
+            flat = (A[:, :, None] * H + A[:, None, :]).flatten()
+            szsz.index_add_(0, flat, (r[rows, None, None] * lam).flatten().double())
+        return moments(ss.reshape(B * S, H), r, kappa, szsz, B)
 
 
 @dataclasses.dataclass

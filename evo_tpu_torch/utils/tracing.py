@@ -7,9 +7,10 @@ device profiler (counterpart: evo_tpu/utils/tracing.py).
   start and end, the innermost open span as its parent and the epoch last
   given to ``set_epoch``.  Under a recording torch.profiler it also opens a
   ``record_function`` of its name (a ``user_annotation`` in the Chrome
-  trace).  With a CUDA ``device`` it records a CUDA event on the current
-  stream at its begin and at its end; ``resolve()`` turns those into the
-  span's device time once the card has passed them, and waits for nothing.
+  trace), which lies within the span.  With a CUDA ``device`` it records a
+  CUDA event on the current stream at its begin and at its end;
+  ``resolve()`` turns those into the span's device time once the card has
+  passed them, and waits for nothing.
   A CUDA span that opens right after its sibling closed, with no span
   opened between, begins at that sibling's end event instead of recording
   one: device work launched between the two would count to the second
@@ -151,11 +152,14 @@ class _Span:
         s._child_ns.append(0)
         s._child_ms.append(0.0)
         s._stack.append(i)
+        # the span is stamped before its annotation opens and after it
+        # closes, so that the annotation lies within the span: the first
+        # record_function of a profile takes about a millisecond to open
+        t = _now()
+        s._begin.append(t)
         if _profiling():
             self._rf = torch.profiler.record_function(self._name)
             self._rf.__enter__()
-        t = _now()
-        s._begin.append(t)
         if self._device is not None:
             key = _stream_key(self._device)
             if last is not None and last[0] == parent and last[1] == key:
@@ -176,9 +180,9 @@ class _Span:
             begins.append(self._begin_ev)
             ends.append(end)
             s._last = (s._parent[i], key, end)
-        s._end[i] = t = _now()
         if self._rf is not None:
             self._rf.__exit__(None, None, None)
+        s._end[i] = t = _now()
         dur = t - s._begin[i]
         s._self_ns[i] = dur - s._child_ns[i]
         s._stack.pop()
