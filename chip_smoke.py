@@ -128,7 +128,9 @@ Phases, one line each with its seconds:
                block, packed states): 3 epochs bit for bit alike, launch
                counts alike, one capture each; incomplete data and exact mode
                run eagerly; host ms per epoch of both paths
-`python3 chip_smoke.py epoch_graph` runs phases 1, 2 and 24 alone.
+`python3 chip_smoke.py epoch_graph` runs phases 1, 2 and 24 alone;
+`python3 chip_smoke.py suffstat` phases 1 and 2 and the EBSC suffstat
+kernel's density checks and timings of phase 3.
 The kernels phase also holds the ES3C kernels, the masked ones (incomplete
 data) included, against their plain versions at those paths' shapes, and
 the packed-input EBSC kernels against their plain versions and, bit for
@@ -138,7 +140,9 @@ dense row among sparse ones, a ragged H = 100, H = 1024; the suffstat also
 H = 10 with S = 1024, H = 32 and 40, a B that fills no whole unit, rows
 with rs exactly 0, the bsc_inpaint block, and two launches bit for bit
 alike) with their times on states at the EA's sparsity only and on states
-all half on, the suffstat's beside Wq's dense product in cuBLAS.  Both
+all half on, the suffstat also on EA-converged states (each datapoint's
+states one- and two-bit flips of a 2-unit core, checked as the others) and
+beside Wq's dense product in cuBLAS.  Both
 ES3C suffstat kernels are also held to their plain versions where their
 paths meet (states at the sparse path's threshold and one past it, |s| =
 H - 1 and H, rows with no bit on or r exactly 0, equal states, a B that
@@ -570,6 +574,24 @@ def suffstat_states(Bk, S_, Hk, gen, dense=64, p=None):
     return ss, rs
 
 
+def ea_converged_states(Bk, S_, Hk, gen):
+    """States as the EA leaves them once it has converged, and softmax
+    responsibilities: each datapoint's S_ unique states are one- and
+    two-bit flips of its own 2-unit core (the units q_0 .. q_{S_/2 - 1},
+    then the pairs q_i, q_{i+1}, of a random order q), so that its core
+    units are on in most of its rows.  Needs Hk > S_ / 2."""
+    perm = torch.argsort(torch.rand(Bk, Hk, generator=gen), dim=1)
+    core = torch.zeros(Bk, Hk, dtype=torch.int8).scatter_(1, perm[:, :2], 1)
+    q = torch.argsort(torch.rand(Bk, Hk, generator=gen), dim=1)
+    half, j = S_ // 2, torch.arange(S_ - S_ // 2)
+    flips = torch.zeros(Bk, S_, Hk, dtype=torch.int8)
+    flips[:, :half].scatter_(2, q[:, :half, None], 1)
+    flips[:, half:].scatter_(2, q[:, j, None], 1)
+    flips[:, half:].scatter_(2, q[:, j + 1, None], 1)
+    rs = torch.softmax(torch.randn(Bk, S_, generator=gen) * 3, -1)
+    return core[:, None, :] ^ flips, rs
+
+
 def check_suffstat_densities(device, gen):
     """The active-bits suffstat kernel at the ends of its range, each case as
     check_suffstat_case: rows with no bit or every bit on, one dense row
@@ -577,9 +599,10 @@ def check_suffstat_densities(device, gen):
     a datapoint's rows in pieces), 32, 40 and 1024 (Wq in tiles over
     blocks), a B that is not a multiple of a unit or a chunk, rows with rs
     exactly 0, and the bsc_inpaint block; then its time on the mixed inputs
-    of the kernels row, on states at the EA's sparsity only and on states
-    all half on, beside Wq's dense product in cuBLAS (a yardstick only: it
-    lacks rho and sabs)."""
+    of the kernels row, on states at the EA's sparsity only, on states all
+    half on and on EA-converged states (ea_converged_states: a few units of
+    each datapoint on in most of its rows), beside Wq's dense product in
+    cuBLAS (a yardstick only: it lacks rho and sabs)."""
     cases = []
     for Hk in (40, 256):
         cases.append((f"no bit on H={Hk}", torch.zeros(256, 8, Hk, dtype=torch.int8)))
@@ -611,8 +634,13 @@ def check_suffstat_densities(device, gen):
         f"max_abs_err {max(errs):.3g}")
     del ss, rs
 
-    for dense, what in ((64, "mixed"), (0, "EA sparsity only"), (B, "all half on")):
-        ss, rs = (t.to(device) for t in suffstat_states(B, S, H, gen, dense=dense))
+    for what in ("mixed", "EA sparsity only", "all half on", "EA-converged"):
+        if what == "EA-converged":
+            inputs = ea_converged_states(B, S, H, gen)
+        else:
+            dense = {"mixed": 64, "EA sparsity only": 0, "all half on": B}[what]
+            inputs = suffstat_states(B, S, H, gen, dense=dense)
+        ss, rs = (t.to(device) for t in inputs)
         errs = check_suffstat_case(what, ss, rs)
         pk = pack_bits_lane(ss)
         ms, dev_ms = cuda_ms(lambda: bsc_suffstat(ss, rs)), graph_ms(lambda: bsc_suffstat(ss, rs))
@@ -2841,7 +2869,13 @@ def main(argv=()):
 
 
 # the phases that run alone: python3 chip_smoke.py <phase> ...
-STANDALONE = {"epoch_graph": epoch_graph}
+def suffstat_phase(launches):
+    """The EBSC suffstat kernel's checks and timings of the kernels phase
+    (check_suffstat_densities, with the same seed), alone."""
+    check_suffstat_densities(DEVICE, torch.Generator().manual_seed(5))
+
+
+STANDALONE = {"epoch_graph": epoch_graph, "suffstat": suffstat_phase}
 
 if __name__ == "__main__":
     sys.exit(main(sys.argv[1:]))

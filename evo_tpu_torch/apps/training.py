@@ -12,8 +12,10 @@ Observability:
   - tracefile records host spans (``utils.tracing``) around every phase
     of an epoch (em_step or em_steps, stats_wait inside it, log,
     epoch_callback, checkpoint) and the models' em_step.* phases, each
-    epoch's EA counters (ea.children, ea.unique) on em_step, and resolves
-    the phases' device times after each stats transfer.
+    epoch's EA counters (ea.children, ea.unique) and, where bsc_suffstat
+    ran, its row counters (suffstat.sparse_rows, suffstat.dense_rows) on
+    em_step, and resolves the phases' device times after each stats
+    transfer.
   - device_trace_every=N records one epoch in every N with torch.profiler
     into <outdir>/device_trace (a Chrome trace).
 Each epoch's (or chunk's) statistics reach the host in one transfer.
@@ -34,6 +36,7 @@ import torch
 from evo_tpu_torch.apps.common import merge_dict, params_to_dict, to_host
 from evo_tpu_torch.models.base import StepStats, em_steps, epoch_generator
 from evo_tpu_torch.models.sssc import SSSC
+from evo_tpu_torch.ops.bsc_suffstat import row_counts
 from evo_tpu_torch.ops.sssc_lpj import overflow_cap
 from evo_tpu_torch.parallel import distributed
 from evo_tpu_torch.utils import tracing
@@ -93,10 +96,19 @@ class EMTrainer:
         the EA's counters on the open span: ``ea.children``, this rank's
         rows times the children a datapoint's EA evaluates, and
         ``ea.unique``, S_nunique (new unique children per datapoint, from
-        the stats) times those rows."""
+        the stats) times those rows; while spans are recorded, also
+        ``suffstat.sparse_rows`` and ``suffstat.dense_rows``, the rows
+        that ``bsc_suffstat`` summed sparsely and densely since the last
+        such read (none where it has not run: ES3C), a transfer after the
+        stats' own."""
         with tracing.span("stats_wait"):
             stats = stats_to_host(stats)
         tracing.resolve()
+        if tracing.active():
+            summed = row_counts(self.data.y.device)
+            if summed is not None:
+                tracing.count("suffstat.sparse_rows", summed[0])
+                tracing.count("suffstat.dense_rows", summed[1])
         if self.cfg.n_new:
             rows = self.data.row_valid.numel()
             s_nunique = np.atleast_1d(stats.S_nunique)

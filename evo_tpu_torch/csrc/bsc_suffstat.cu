@@ -36,13 +36,22 @@
 //     shared, so the two modes give bit-identical rho, sabs and Wq.  A
 //     thread a row then counts n (sabs, written by the blocks of tile 0)
 //     and lists up to 32 active latents, ascending.
-//  2. Sparse rows (n <= 32) by scatter.  Warp w owns the latents h with
-//     h % 16 = w: their Wq rows and their rho.  It gathers the rows with a
-//     latent it owns, and lane j takes its latent h = w + 16 j: it walks
-//     those rows that have h in order and adds each row's rs to rho[., h]
-//     and to Wq[h, k] for the row's latents k >= h.  No two threads touch
-//     one entry, so there is nothing to order between them, and each
-//     entry's adds follow the rows' order.
+//  2. Sparse rows (n <= 32) by entry.  Each such row with rs != 0 has its
+//     items: its pairs h <= k in the tile and, on the diagonal tiles, its
+//     (datapoint, h) entries of rho.  Per group of 32 rows and latent of
+//     the tile, a mask of the rows that hold the latent (the row masks'
+//     bits transposed by shuffles), and per latent the groups that hold it.
+//     A block scan numbers the items in row order; the warps take them 32
+//     at a time, a lane an item, whichever latents are hot.  An item stops
+//     where an earlier row of its group holds its entry; where its row
+//     alone holds the entry it adds its rs; else it claims the entry in a
+//     bitmap (an integer atomic), and the first claim lists the entry.
+//     After a barrier a thread a listed entry sums the rs of all its
+//     holders in row order into four partials and adds the four, in a
+//     fixed order, once to the tile or to rho: the same sum whichever item
+//     claimed it.  Rounds of ROUND_ITEMS items bound the list.  Where the
+//     caller gives a counter, integer atomics count the rows of steps 2
+//     and 3.
 //  3. Dense rows (n > 32) by a tiled product.  They are staged 32 at a time
 //     as 0/1 f32 columns with their rs, and every thread adds them into its
 //     4 x 4 sub-blocks of the tile (the triangle's only): rs s_h s_k by FMA,
@@ -72,13 +81,15 @@
 namespace {
 
 constexpr int THREADS = 512;
-constexpr int NW = THREADS / 32;  // warps; warp w owns the Wq rows h with h % NW == w
+constexpr int NW = THREADS / 32;  // warps, and rho's datapoint slots
 constexpr int RB_MAX = 256;       // rows of a sub-batch
 static_assert(RB_MAX <= THREADS, "a thread a row of a sub-batch");
 constexpr int PF = 8;             // 16-byte state loads a thread has in flight
 constexpr int SUB_BYTES = PF * THREADS * 16;  // int8 bytes of a sub-batch at most: one round
 constexpr int UNIT_ROWS = 32;     // a unit holds whole datapoints, this many rows where S allows
 constexpr int LMAX = 32;          // latents a listed (sparse) row; denser rows are staged
+constexpr int PAIRS = LMAX * (LMAX + 1) / 2;  // pairs a <= b of a sparse row's latents
+constexpr int ROUND_ITEMS = 8 * THREADS;  // step 2's items a round
 constexpr int LS = 34;            // list stride in halfwords (17 words: no bank conflicts)
 constexpr int R = 32;             // dense rows staged at once
 constexpr int ROWS_PER_CHUNK = 2048;
@@ -106,11 +117,23 @@ __host__ __device__ inline int tile_floats(int n, int m, bool diag) {
   return diag ? 8 * q * (q + 1) : 4 * q * ((m + 3) / 4) * 4;
 }
 
+// A bitmap over a tile's entries and rho's (NW datapoint slots) in layers
+// of 32 SPREAD bits, entry e at bit e / SPREAD % 32 of word e % SPREAD of
+// its layer, so that a row's entries, which lie close together, fall in
+// different words.
+constexpr int SEEN_SHIFT = 9, SEEN_SPREAD = 1 << SEEN_SHIFT;
+__host__ __device__ inline int seen_words(int T, bool tiled) {
+  const int bits = tile_floats(T, T, !tiled) + NW * ((T + 3) & ~3);
+  return SEEN_SPREAD * ((bits + 32 * SEEN_SPREAD - 1) / (32 * SEEN_SPREAD));
+}
+
 // Byte offsets of the block's shared memory for width H, latent ranges of
-// T (the whole H when P = 1) and sub-batches of RB rows.
+// T (the whole H when P = 1) and sub-batches of RB rows in NG groups of 32.
+// Step 2's column masks share their area with step 3's staging.
 struct Layout {
-  int T4, MW, MS;
-  size_t stor, bk, bh, srs, sdp, masks, rn, rflag, rrs, dlist, racc, wrows, list, total;
+  int T4, MW, MS, NG;
+  size_t stor, bk, bh, cols, ctab, seen, claims, srs, sdp, masks, rn, rrs, dlist, racc, rpos,
+      erec, eoff, wsum, ptab, list, total;
 };
 
 __host__ __device__ inline Layout make_layout(int H, int T, bool tiled, int RB) {
@@ -118,13 +141,22 @@ __host__ __device__ inline Layout make_layout(int H, int T, bool tiled, int RB) 
   L.T4 = (T + 3) & ~3;
   L.MW = (H + 31) / 32;
   L.MS = L.MW | 1;  // odd row stride: a thread a row reads without bank conflicts
+  L.NG = (RB + 31) / 32;
   size_t o = 0;
   L.stor = o;  // the tile
   o += sizeof(float) * (tiled ? tile_floats(T, T, false) : tile_floats(T, T, true));
-  L.bk = o;  // s_k of the staged dense rows (and s_h on the diagonal tiles)
-  o += sizeof(float) * R * L.T4;
-  L.bh = o;  // s_h of the staged dense rows on the other tiles
-  o += tiled ? sizeof(float) * R * L.T4 : 0;
+  const size_t staging = sizeof(float) * R * L.T4 * (tiled ? 2 : 1);
+  const size_t cols = sizeof(uint32_t) * (L.NG + 1) * L.T4 * (tiled ? 2 : 1);
+  L.bk = o;  // step 3: s_k of the staged dense rows (and s_h on the diagonal tiles)
+  L.bh = o + sizeof(float) * R * L.T4;  // s_h of the staged dense rows on the other tiles
+  L.cols = o;  // step 2: per group and latent of the h range (then of the k range), its rows;
+               // then per latent, its groups
+  L.ctab = o + cols;  // step 2: per 32 items, the row (of those with items) of the first
+  const size_t ctab = (size_t(RB) * (LMAX + PAIRS) / 32 + 16) & ~size_t(15);
+  L.seen = L.ctab + ctab;  // step 2: per entry of the tile and of rho, whether an item claimed it
+  L.claims = L.seen + sizeof(uint32_t) * seen_words(T, tiled);  // step 2: a round's claimed entries
+  const size_t scratch = L.claims + sizeof(uint32_t) * ROUND_ITEMS - o;
+  o += (staging > scratch ? staging : scratch + 15) & ~size_t(15);
   L.srs = o;  // their rs
   o += sizeof(float) * R;
   L.sdp = o;  // their datapoints in the sub-batch
@@ -133,16 +165,24 @@ __host__ __device__ inline Layout make_layout(int H, int T, bool tiled, int RB) 
   o += sizeof(uint32_t) * size_t(RB) * L.MS;
   L.rn = o;  // n per row
   o += sizeof(int) * RB;
-  L.rflag = o;  // per row: bit w <=> a latent of warp w's Wq rows, sparse rows with rs != 0
-  o += sizeof(uint32_t) * RB;
-  L.rrs = o;  // rs per row
+  o = (o + 15) & ~size_t(15);
+  L.rrs = o;  // rs per row (16-byte aligned: read 4 at a time)
   o += sizeof(float) * RB;
   L.dlist = o;  // the dense rows, ascending, then their count
   o += sizeof(int) * (RB + 1);
-  L.racc = o;  // rho of the datapoints the warps sum, one slot a datapoint
+  L.racc = o;  // rho of the sub-batch's datapoints, one slot a datapoint
   o += sizeof(float) * NW * L.T4;
-  L.wrows = o;  // each warp's rows with a latent it owns
-  o += sizeof(uint16_t) * NW * RB;
+  L.rpos = o;  // step 2: per row, where its latents of the h and k ranges start and how many
+  o += sizeof(uint32_t) * RB;
+  o = (o + 15) & ~size_t(15);
+  L.erec = o;  // step 2: the rows that have items, in order: (first item, row, rpos, 0)
+  o += sizeof(uint4) * RB;
+  L.eoff = o;  // step 2: ... their first items again, then the end
+  o += sizeof(int) * (RB + 1);
+  L.wsum = o;  // step 2: the warps' items, rows with items and dense rows; the claims
+  o += sizeof(int) * (3 * NW + 1);
+  L.ptab = o;  // step 2: the p-th pair (a, b), a <= b, of a row's latents, by b then a
+  o += sizeof(uint16_t) * PAIRS;
   L.list = o;  // up to LMAX active latents a row
   o += sizeof(uint16_t) * size_t(RB) * LS;
   L.total = (o + 15) & ~size_t(15);
@@ -164,7 +204,8 @@ template <bool PACKED>
 __global__ void __launch_bounds__(THREADS)
 bsc_suffstat_partial(const uint8_t* __restrict__ ss, const float* __restrict__ rs,
                      float* __restrict__ rho, float* __restrict__ sabs,
-                     float* __restrict__ partial, int B, int S, int H, int P, int T) {
+                     float* __restrict__ partial, unsigned long long* __restrict__ rows_out,
+                     int B, int S, int H, int P, int T) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int RB = rows_per_batch(H, S);
   const Layout L = make_layout(H, T, P > 1, RB);
@@ -174,14 +215,20 @@ bsc_suffstat_partial(const uint8_t* __restrict__ ss, const float* __restrict__ r
   int* sdp = reinterpret_cast<int*>(smem + L.sdp);
   uint32_t* masks = reinterpret_cast<uint32_t*>(smem + L.masks);
   int* rn = reinterpret_cast<int*>(smem + L.rn);
-  uint32_t* rflag = reinterpret_cast<uint32_t*>(smem + L.rflag);
   float* rrs = reinterpret_cast<float*>(smem + L.rrs);
   int* dlist = reinterpret_cast<int*>(smem + L.dlist);
   uint16_t* list = reinterpret_cast<uint16_t*>(smem + L.list);
-  const int MW = L.MW, MS = L.MS, T4 = L.T4;
+  uint32_t* rpos = reinterpret_cast<uint32_t*>(smem + L.rpos);
+  uint4* erec = reinterpret_cast<uint4*>(smem + L.erec);
+  int* eoff = reinterpret_cast<int*>(smem + L.eoff);
+  int* wsum = reinterpret_cast<int*>(smem + L.wsum);
+  uint8_t* ctab = smem + L.ctab;
+  uint32_t* seen = reinterpret_cast<uint32_t*>(smem + L.seen);
+  uint32_t* claims = reinterpret_cast<uint32_t*>(smem + L.claims);
+  uint16_t* ptab = reinterpret_cast<uint16_t*>(smem + L.ptab);
+  const int MW = L.MW, MS = L.MS, T4 = L.T4, NG = L.NG;
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const uint32_t below = (1u << lane) - 1u;  // the lanes below this one
   int I, J;
   tri_ij(blockIdx.y, P, I, J);
   const int h0 = I * T, nh = min(T, H - h0), k0 = J * T, nk = min(T, H - k0);
@@ -189,15 +236,19 @@ bsc_suffstat_partial(const uint8_t* __restrict__ ss, const float* __restrict__ r
   const int nk4 = (nk + 3) & ~3;
   float* bh_s = diag ? bk_s : reinterpret_cast<float*>(smem + L.bh);
   float* racc = reinterpret_cast<float*>(smem + L.racc);
-  uint16_t* wrows = reinterpret_cast<uint16_t*>(smem + L.wrows) + warp * RB;
-  // this warp's latents of the tile's h range: hb, hb + 16, ... (nh <= 512:
-  // at most 32), lane j on latent h = hb + 16 j
-  const int hb = h0 + ((warp - h0) % NW + NW) % NW;
-  const int nown = hb < h0 + nh ? (h0 + nh - 1 - hb) / NW + 1 : 0;
-  const int hl = hb + NW * lane;
+  // step 2's masks of the rows holding each latent of the h (k) range, T4 words a group
+  uint32_t* colh = reinterpret_cast<uint32_t*>(smem + L.cols);
+  uint32_t* colk = diag ? colh : colh + NG * T4;
+  uint32_t* occh = colh + NG * T4 * (P > 1 ? 2 : 1);
+  uint32_t* occk = diag ? occh : occh + T4;
   const int W8 = (H + 7) / 8, rb = PACKED ? W8 : H;
   for (int e = threadIdx.x; e < tile_floats(nh, nk, diag); e += THREADS) stor[e] = 0.f;
   for (int e = threadIdx.x; e < NW * T4; e += THREADS) racc[e] = 0.f;
+  for (int p = threadIdx.x; p < PAIRS; p += THREADS) {
+    int b = 0;
+    while ((b + 1) * (b + 2) / 2 <= p) ++b;
+    ptab[p] = uint16_t(p - b * (b + 1) / 2 | b << 8);
+  }
   // where row hh (of the tile) starts, at the column of its sub-block
   auto row_at = [&](int hh) {
     const int q = hh >> 2;
@@ -253,11 +304,12 @@ bsc_suffstat_partial(const uint8_t* __restrict__ ss, const float* __restrict__ r
                      : make_uint4(0u, 0u, 0u, 0u);
   };
 
+  unsigned n_sparse = 0, n_dense = 0;  // rows with rs != 0 of steps 2 and 3 (tile 0 counts)
   for (int t = 0;; ++t) {
     const Batch b = batch_at(t);
     const int nrows = b.nrows;
     if (nrows == 0) break;
-    // 1. masks, then a thread a row: n, the list, rs, sabs, the warps' flags
+    // 1. masks, then a thread a row: n, the list, rs, sabs
     for (int e = threadIdx.x; e < nrows * MS; e += THREADS) masks[e] = 0u;
     const int me = threadIdx.x;  // this thread's row
     const long long my_row = me < nrows ? seg_row0(b, me / b.seg_rows) + me % b.seg_rows : 0;
@@ -290,70 +342,235 @@ bsc_suffstat_partial(const uint8_t* __restrict__ ss, const float* __restrict__ r
       const uint32_t* m = masks + me * MS;
       uint16_t* lr = list + me * LS;
       int n = 0, pos = 0;
-      uint32_t orw = 0u;
       for (int j = 0; j < MW; ++j) {
         uint32_t w = m[j];
         n += __popc(w);
-        orw |= w;
         for (; w != 0u && pos < LMAX; w &= w - 1u) lr[pos++] = uint16_t(32 * j + __ffs(w) - 1);
       }
       rn[me] = n;
       rrs[me] = my_rs;
-      rflag[me] = n <= LMAX && my_rs != 0.f ? (orw | orw >> 16) & 0xffffu : 0u;
       if (blockIdx.y == 0) sabs[my_row] = float(n);
     }
     __syncthreads();
 
-    // 2. the dense rows' list (warp 0); the sparse rows' pairs and rho
+    // 2. the sparse rows' pairs and rho
+    // 2a. a thread a row: its items (on diagonal tiles its rho entries
+    // first, then its pairs, by k, then h) and where its latents of the two
+    // ranges start (all ones: not a sparse row with rs != 0), the rows
+    // counted; then, by block scans, the rows that have items, in order,
+    // with their first item, where each 32 items start, and the dense rows
+    int items = 0, dense = 0;
+    if (me < nrows) rpos[me] = ~0u;
+    for (int e = threadIdx.x; e < seen_words(T, P > 1); e += THREADS) seen[e] = 0u;
+    for (int e = threadIdx.x; e < T4 * (P > 1 ? 2 : 1); e += THREADS) occh[e] = 0u;
+    int* n_claims = wsum + 3 * NW;
+    if (threadIdx.x == 0) *n_claims = 0;
+    if (me < nrows && my_rs != 0.f) {
+      const int n = rn[me];
+      if (n <= LMAX) {
+        int ia = 0, mh = n, ja = 0, mk = n;
+        if (P > 1) {
+          const uint16_t* lr = list + me * LS;
+          int h_lo = 0, h_hi = 0, k_lo = 0, k_hi = 0;
+          for (int c = 0; c < n; ++c) {
+            const int v = lr[c];
+            h_lo += v < h0;
+            h_hi += v < h0 + nh;
+            k_lo += v < k0;
+            k_hi += v < k0 + nk;
+          }
+          ia = h_lo, mh = h_hi - h_lo, ja = k_lo, mk = k_hi - k_lo;
+        }
+        items = diag ? mh + mh * (mh + 1) / 2 : mh * mk;
+        rpos[me] = uint32_t(ia) | uint32_t(mh) << 8 | uint32_t(ja) << 16 | uint32_t(mk) << 24;
+        n_sparse += blockIdx.y == 0;
+      } else {
+        dense = 1;
+        n_dense += blockIdx.y == 0;
+      }
+    }
+    const int has = items > 0;
+    int c_items = items, c_has = has, c_dense = dense;  // inclusive, within the warp
+    for (int o = 1; o < 32; o <<= 1) {
+      const int u = __shfl_up_sync(FULL, c_items, o), v = __shfl_up_sync(FULL, c_has, o),
+                w = __shfl_up_sync(FULL, c_dense, o);
+      if (lane >= o) c_items += u, c_has += v, c_dense += w;
+    }
+    if (lane == 31) wsum[warp] = c_items, wsum[NW + warp] = c_has, wsum[2 * NW + warp] = c_dense;
+    __syncthreads();
     if (warp == 0) {
-      int nd = 0;
-      for (int g = 0; g < nrows; g += 32) {
-        const int r = g + lane;
-        const bool d = r < nrows && rn[r] > LMAX && rrs[r] != 0.f;
-        const uint32_t bal = __ballot_sync(FULL, d);
-        if (d) dlist[nd + __popc(bal & below)] = r;
-        nd += __popc(bal);
-      }
-      if (lane == 0) dlist[RB] = nd;
-    }
-    int nw = 0;  // this warp's rows, in order
-    for (int g = 0; g < nrows; g += 32) {
-      const int r = g + lane;
-      const bool mine = r < nrows && ((rflag[r] >> warp) & 1u);
-      const uint32_t bal = __ballot_sync(FULL, mine);
-      if (mine) wrows[nw + __popc(bal & below)] = uint16_t(r);
-      nw += __popc(bal);
-    }
-    __syncwarp();
-    for (int i0 = 0; i0 < nw; i0 += 32) {
-      // lane p: row wrows[i0 + p]; bit j of `has`: the row has latent hb + 16 j
-      uint32_t has = 0u;
-      if (i0 + lane < nw) {
-        const uint32_t* m = masks + wrows[i0 + lane] * MS;
-        for (int j = 0; j < nown; ++j) {
-          const int hj = hb + NW * j;
-          has |= ((m[hj >> 5] >> (hj & 31)) & 1u) << j;
+      int v[3];
+#pragma unroll
+      for (int q = 0; q < 3; ++q) v[q] = lane < NW ? wsum[q * NW + lane] : 0;
+      for (int o = 1; o < 32; o <<= 1) {
+#pragma unroll
+        for (int q = 0; q < 3; ++q) {
+          const int u = __shfl_up_sync(FULL, v[q], o);
+          if (lane >= o) v[q] += u;
         }
       }
-      uint32_t mine = 0u;  // lane j: the rows with latent h = hb + 16 j, in order
-      for (int j = 0; j < nown; ++j) {
-        const uint32_t bal = __ballot_sync(FULL, (has >> j) & 1u);
-        if (lane == j) mine = bal;
-      }
-      for (; mine != 0u; mine &= mine - 1u) {  // rho[., h], then Wq[h, k], k >= h
-        const int r = wrows[i0 + __ffs(mine) - 1];
-        const int n = rn[r];
-        const float v = rrs[r];
-        const uint16_t* lr = list + r * LS;
-        if (diag) racc[dp_of(b, r) * T4 + hl - h0] += v;
-        for (int c = 0; c < n; ++c) {
-          const int k = lr[c];
-          if (k >= hl && k >= k0 && k < k0 + nk) stor[sidx(hl, k)] += v;
-        }
-      }
-      __syncwarp();
+      if (lane < NW)
+#pragma unroll
+        for (int q = 0; q < 3; ++q) wsum[q * NW + lane] = v[q];  // inclusive, over the warps
     }
     __syncthreads();
+    const int ne = wsum[2 * NW - 1];  // the rows that have items
+    if (has) {
+      const int j = c_has - 1 + (warp > 0 ? wsum[NW + warp - 1] : 0);
+      const int e0 = c_items - items + (warp > 0 ? wsum[warp - 1] : 0);
+      eoff[j] = e0;
+      erec[j] = make_uint4(uint32_t(e0), uint32_t(me), rpos[me], 0u);
+      for (int c = (e0 + 31) >> 5; 32 * c < e0 + items; ++c) ctab[c] = uint8_t(j);
+    }
+    if (dense) dlist[c_dense - 1 + (warp > 0 ? wsum[2 * NW + warp - 1] : 0)] = me;
+    if (threadIdx.x == 0) {
+      eoff[ne] = wsum[NW - 1];
+      dlist[RB] = wsum[3 * NW - 1];
+    }
+    // 2b. the column masks: warp tasks (group, 32 latents of a range), a
+    // lane a row's bits of the 32 latents, transposed by shuffles so that a
+    // lane holds a latent's bits of the 32 rows
+    auto columns = [&](uint32_t* col, uint32_t* occ, int first, int cnt) {
+      const int nc = (cnt + 31) / 32;
+      for (int t = warp; t < NG * nc; t += NW) {
+        const int g = t / nc, c = t - g * nc, r = 32 * g + lane, l0 = first + 32 * c;
+        uint32_t w = 0u;
+        if (r < nrows && rpos[r] != ~0u) {
+          const uint32_t* m = masks + r * MS;
+          const int q = l0 >> 5, sh = l0 & 31;
+          uint64_t two = m[q];
+          if (sh != 0 && q + 1 < MW) two |= uint64_t(m[q + 1]) << 32;
+          w = uint32_t(two >> sh);
+          if (cnt - 32 * c < 32) w &= (1u << (cnt - 32 * c)) - 1u;
+        }
+#pragma unroll
+        for (int sw = 16; sw > 0; sw >>= 1) {  // swap the off-diagonal sw x sw blocks
+          const uint32_t lo = sw == 16 ? 0x0000ffffu : sw == 8 ? 0x00ff00ffu : sw == 4 ? 0x0f0f0f0fu
+                              : sw == 2 ? 0x33333333u : 0x55555555u;
+          const uint32_t o = __shfl_xor_sync(FULL, w, sw);
+          w = (lane & sw) ? ((o >> sw) & lo) | (w & ~lo) : (w & lo) | ((o << sw) & ~lo);
+        }
+        if (32 * c + lane < cnt) {
+          col[g * T4 + 32 * c + lane] = w;
+          if (w != 0u) atomicOr(&occ[32 * c + lane], 1u << g);
+        }
+      }
+    };
+    columns(colh, occh, h0, nh);
+    if (!diag) columns(colk, occk, k0, nk);
+    __syncthreads();
+
+    // 2c. in rounds of ROUND_ITEMS items, the items 32 at a time a warp, a
+    // lane an item: its row r and latents h <= k (h = k for rho).  The rows
+    // that hold its entry (rho: of its datapoint) come from the column
+    // masks.  Where an earlier row of its group holds the entry, the item
+    // stops; where its row alone holds it, it adds its rs; else it claims
+    // the entry in the bitmap, and the first claim lists it.
+    const int n_items = eoff[ne];
+    auto holders = [&](int q, int h, int k, bool rho, int d0, int d1) {
+      const uint32_t w = colh[q * T4 + h - h0];
+      if (!rho) return w & colk[q * T4 + k - k0];
+      const int a = max(d0 - 32 * q, 0), z = min(d1 - 32 * q, 32);
+      return a >= z ? 0u : w & (z == 32 ? FULL : (1u << z) - 1u) & ~((1u << a) - 1u);
+    };
+    for (int base = 0, first_claim = 0; base < n_items; base += ROUND_ITEMS) {
+      const int end_items = min(n_items, base + ROUND_ITEMS);
+      for (int c0 = base + 32 * warp; c0 < end_items; c0 += THREADS) {
+        int j = ctab[c0 >> 5];  // the row of item c0, then each lane's among those that start here
+        const int jn = j + 1 + lane;
+        const int at = jn < ne ? eoff[jn] - c0 : 32;
+        const uint32_t starts = __reduce_or_sync(FULL, at < 32 ? 1u << at : 0u);
+        const int i = c0 + lane;
+        if (i >= end_items) continue;
+        j += __popc(starts & ((2u << lane) - 1u));
+        const uint4 rec = erec[j];
+        const int r = int(rec.y), t = i - int(rec.x);
+        const uint32_t p = rec.z;
+        const int ia = p & 0xff, mh = p >> 8 & 0xff, ja = p >> 16 & 0xff, mk = p >> 24;
+        const uint16_t* lr = list + r * LS;
+        const bool rho = diag && t < mh;
+        int h, k;
+        if (rho) {
+          h = k = lr[ia + t];
+        } else if (diag) {
+          const int ab = ptab[t - mh];
+          h = lr[ia + (ab & 0xff)];
+          k = lr[ia + (ab >> 8)];
+        } else {
+          const int a = t / mk;
+          h = lr[ia + a];
+          k = lr[ja + t - a * mk];
+        }
+        const int dp = rho && !pieces ? r / S : 0;
+        const int d0 = rho && !pieces ? dp * S : 0, d1 = rho && !pieces ? d0 + S : nrows;
+        const int g = r >> 5;
+        const uint32_t x = holders(g, h, k, rho, d0, d1);
+        if (x & ((1u << (r & 31)) - 1u)) continue;  // an earlier row of its group holds the entry
+        const int e = rho ? tile_floats(nh, nk, diag) + dp * T4 + h - h0 : sidx(h, k);
+        const uint32_t groups = occh[h - h0] & (rho ? (2u << ((d1 - 1) >> 5)) - (1u << (d0 >> 5))
+                                                    : occk[k - k0]);
+        if (groups == 1u << g && (x & (x - 1u)) == 0u) {  // the row alone holds it: its rs
+          if (rho) racc[dp * T4 + h - h0] += rrs[r];
+          else stor[e] += rrs[r];
+          continue;
+        }
+        const uint32_t bit = 1u << ((e >> SEEN_SHIFT) & 31);
+        const int word = (e >> (SEEN_SHIFT + 5) << SEEN_SHIFT) + (e & (SEEN_SPREAD - 1));
+        if (atomicOr(&seen[word], bit) & bit) continue;  // claimed by another row's item
+        claims[atomicAdd(n_claims, 1) - first_claim] = uint32_t(h - h0) | uint32_t(k - k0) << 9 |
+                                                       uint32_t(dp) << 18 | groups << 22 |
+                                                       uint32_t(rho) << 31;
+      }
+      __syncthreads();
+      // the round's claimed entries, a thread each: the rs of all their
+      // holders, group by group in row order into four partials (up to four
+      // rows of a group: the i-th into partial i; more: row i of the group
+      // into partial i % 4, read four at a time), then the four in a fixed
+      // order, added once to the tile or to rho
+      const int last_claim = *n_claims;
+      for (int c = first_claim + threadIdx.x; c < last_claim; c += THREADS) {
+        const uint32_t cl = claims[c - first_claim];
+        const bool rho = cl >> 31;
+        const int h = h0 + int(cl & 0x1ff), k = k0 + int(cl >> 9 & 0x1ff), dp = int(cl >> 18 & 15);
+        const int d0 = rho && !pieces ? dp * S : 0, d1 = rho && !pieces ? d0 + S : nrows;
+        float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
+        for (uint32_t groups = cl >> 22 & 0xffu; groups != 0u; groups &= groups - 1u) {
+          const int q = __ffs(groups) - 1;  // a group that may hold the entry
+          uint32_t m = holders(q, h, k, rho, d0, d1);
+          if (m == 0u) continue;
+          if (__popc(m) <= 4) {  // a few rows: by rank, holder i into partial i
+            int b[4];
+#pragma unroll
+            for (int u = 0; u < 4; ++u) {
+              b[u] = m != 0u ? __ffs(m) - 1 : -1;
+              m &= m - 1u;
+            }
+            a0 += rrs[32 * q + b[0]];
+            a1 += b[1] >= 0 ? rrs[32 * q + b[1]] : 0.f;
+            a2 += b[2] >= 0 ? rrs[32 * q + b[2]] : 0.f;
+            a3 += b[3] >= 0 ? rrs[32 * q + b[3]] : 0.f;
+            continue;
+          }
+          const float4* v = reinterpret_cast<const float4*>(rrs + 32 * q);
+#pragma unroll
+          for (int u = 0; u < 8; ++u) {
+            const uint32_t nib = m >> (4 * u) & 15u;
+            if (nib != 0u) {
+              const float4 f = v[u];
+              a0 += nib & 1u ? f.x : 0.f;
+              a1 += nib & 2u ? f.y : 0.f;
+              a2 += nib & 4u ? f.z : 0.f;
+              a3 += nib & 8u ? f.w : 0.f;
+            }
+          }
+        }
+        const float sum = (a0 + a1) + (a2 + a3);
+        if (rho) racc[dp * T4 + h - h0] += sum;
+        else stor[sidx(h, k)] += sum;
+      }
+      first_claim = last_claim;
+      __syncthreads();
+    }
 
     // 3. the dense rows, R at a time, into the tile's 4 x 4 sub-blocks
     const int nd = dlist[RB];
@@ -426,6 +643,16 @@ bsc_suffstat_partial(const uint8_t* __restrict__ ss, const float* __restrict__ r
     }
   }
   __syncthreads();
+  if (rows_out != nullptr && blockIdx.y == 0) {
+    for (int o = 16; o > 0; o >>= 1) {
+      n_sparse += __shfl_xor_sync(FULL, n_sparse, o);
+      n_dense += __shfl_xor_sync(FULL, n_dense, o);
+    }
+    if (lane == 0) {
+      atomicAdd(rows_out, (unsigned long long)n_sparse);
+      atomicAdd(rows_out + 1, (unsigned long long)n_dense);
+    }
+  }
 
   // the tile into this chunk's partial (Wq's packed upper triangle)
   float* out = partial + size_t(blockIdx.x) * (size_t(H) * (H + 1) / 2);
@@ -515,8 +742,8 @@ int card(Card* out) {
 }
 
 template <bool PACKED>
-int launch(const void* ss, const void* rs, void* rho, void* sabs, void* wq, void* partial, int B,
-           int S, int H, int G, void* stream) {
+int launch(const void* ss, const void* rs, void* rho, void* sabs, void* wq, void* partial,
+           void* rows, int B, int S, int H, int G, void* stream) {
   Card c;
   const int e = card(&c);
   if (e != 0) return e;
@@ -525,7 +752,8 @@ int launch(const void* ss, const void* rs, void* rho, void* sabs, void* wq, void
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   bsc_suffstat_partial<PACKED><<<dim3(G, p.P * (p.P + 1) / 2), THREADS, p.smem, st>>>(
       static_cast<const uint8_t*>(ss), static_cast<const float*>(rs), static_cast<float*>(rho),
-      static_cast<float*>(sabs), static_cast<float*>(partial), B, S, H, p.P, p.T);
+      static_cast<float*>(sabs), static_cast<float*>(partial),
+      static_cast<unsigned long long*>(rows), B, S, H, p.P, p.T);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return int(err);
   const long long tri = (long long)H * (H + 1) / 2;
@@ -559,15 +787,18 @@ extern "C" int evo_bsc_suffstat_chunks(int B, int S, int H) {
   return int(std::max(1LL, std::min({std::max(fill, tall), n_units, cap})));
 }
 
-// ss: int8 0/1 [B, S, H]; partial: [G, H(H+1)/2] f32, G from evo_bsc_suffstat_chunks
+// ss: int8 0/1 [B, S, H]; partial: [G, H(H+1)/2] f32, G from evo_bsc_suffstat_chunks;
+// rows: null, or two uint64 counters that gain the rows with rs != 0 summed
+// sparsely (n <= 32) and densely
 extern "C" int evo_bsc_suffstat(const void* ss, const void* rs, void* rho, void* sabs, void* wq,
-                                void* partial, int B, int S, int H, int G, void* stream) {
-  return launch<false>(ss, rs, rho, sabs, wq, partial, B, S, H, G, stream);
+                                void* partial, void* rows, int B, int S, int H, int G,
+                                void* stream) {
+  return launch<false>(ss, rs, rho, sabs, wq, partial, rows, B, S, H, G, stream);
 }
 
 // ss: lane-major packed uint8 [B, S, ceil(H/8)]
 extern "C" int evo_bsc_suffstat_packed(const void* ss, const void* rs, void* rho, void* sabs,
-                                       void* wq, void* partial, int B, int S, int H, int G,
-                                       void* stream) {
-  return launch<true>(ss, rs, rho, sabs, wq, partial, B, S, H, G, stream);
+                                       void* wq, void* partial, void* rows, int B, int S, int H,
+                                       int G, void* stream) {
+  return launch<true>(ss, rs, rho, sabs, wq, partial, rows, B, S, H, G, stream);
 }

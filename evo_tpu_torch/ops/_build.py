@@ -36,9 +36,9 @@ SIGNATURES = {
     "evo_bsc_lpj_packed": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     # B, S, H -> the number of chunks G of the two calls below
     "evo_bsc_suffstat_chunks": [_I, _I, _I],
-    # ss, rs, rho, sabs, wq, partial [G, H(H+1)/2], B, S, H, G, stream
-    "evo_bsc_suffstat": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "evo_bsc_suffstat_packed": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # ss, rs, rho, sabs, wq, partial [G, H(H+1)/2], rows [2] or null, B, S, H, G, stream
+    "evo_bsc_suffstat": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "evo_bsc_suffstat_packed": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # ss, wty, y2, G, Psi, mus, pil_bar, s2inv, lpj, bad, B, K, H, cap, stream
     "evo_sssc_lpj": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # B, S, H, cap -> the number of blocks G of the call below

@@ -16,6 +16,14 @@ int8 and packed modes give bit-identical results; it takes H up to MAX_H.
 The mode follows the states' dtype (uint8: packed), and each mode counts
 its own launches: ``bsc_suffstat.launches`` (int8),
 ``bsc_suffstat.packed_launches``.
+
+The kernel also counts on the card, by integer atomics into a buffer of
+two int64 per device that this module owns, the rows with rs != 0 it
+summed sparsely (n <= 32 units on, entry by entry) and densely; a CUDA
+graph that captures a launch adds to the same buffer at each replay.
+``row_counts`` reads and clears them (a transfer: call it where the host
+has waited for the card anyway).  A launch made while the first buffer of
+a device would have to be made inside a capture counts nothing.
 """
 
 from __future__ import annotations
@@ -48,6 +56,33 @@ def bsc_suffstat_plain(ss, rs, H: int = None):
     sf = ss.to(rs.dtype)
     w = rs[..., None] * sf
     return w.sum(dim=1), sf.sum(dim=-1), w.reshape(-1, H).T @ sf.reshape(-1, H)
+
+
+_rows = {}  # device index -> int64 [2] on the card: rows summed sparsely, densely
+
+
+def _rows_buffer(dev):
+    """The device's row counters, made at its first launch outside a CUDA
+    graph's capture (a capture would record their zeroing); None before."""
+    buf = _rows.get(dev.index)
+    if buf is None and not torch.cuda.is_current_stream_capturing():
+        buf = _rows[dev.index] = torch.zeros(2, dtype=torch.int64, device=dev)
+    return buf
+
+
+def row_counts(device):
+    """(sparse, dense): the rows with rs != 0 that the kernel summed on
+    ``device`` since the last call (the counters start again from 0), or
+    None where it has not run there."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return None
+    buf = _rows.get(dev.index if dev.index is not None else torch.cuda.current_device())
+    if buf is None:
+        return None
+    sparse, dense = buf.tolist()
+    buf.zero_()
+    return sparse, dense
 
 
 @functools.cache
@@ -90,10 +125,11 @@ def bsc_suffstat(ss, rs, H: int = None):
     wq = torch.empty((H, H), dtype=torch.float32, device=dev)
     # each chunk's part of Wq's packed upper triangle
     partial = torch.empty((n_chunks, H * (H + 1) // 2), dtype=torch.float32, device=dev)
+    rows = _rows_buffer(dev)
     fn = _build.entry("evo_bsc_suffstat_packed" if packed else "evo_bsc_suffstat")
     err = fn(ss.data_ptr(), rs.data_ptr(), rho.data_ptr(), sabs.data_ptr(),
-             wq.data_ptr(), partial.data_ptr(), B, S, H, n_chunks,
-             torch.cuda.current_stream(dev).cuda_stream)
+             wq.data_ptr(), partial.data_ptr(), None if rows is None else rows.data_ptr(),
+             B, S, H, n_chunks, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "bsc_suffstat")
     if packed:
         bsc_suffstat.packed_launches += 1

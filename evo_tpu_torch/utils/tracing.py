@@ -17,6 +17,8 @@ device profiler (counterpart: evo_tpu/utils/tracing.py).
   (the models launch none there), and an epoch records about 40% fewer
   events.
 - ``count(name, n)`` adds the host integer ``n`` to the innermost open span.
+- ``active()`` says whether a session is open (and not paused), for
+  counters that cost a read of the card.
 - ``tracepoint(name)`` records a single marker.
 - ``paused()`` records nothing in the block it encloses (a CUDA graph's
   capture, which runs no work).
@@ -238,6 +240,11 @@ def span(name: str, device: Optional[torch.device] = None):
     if not _on:
         return _NO_SPAN
     return _Span(_session, name, device if device is not None and device.type == "cuda" else None)
+
+
+def active() -> bool:
+    """Whether spans and counters are being recorded now."""
+    return _on
 
 
 def count(name: str, n: int):

@@ -5,8 +5,8 @@ CPU: when the graphs engage, the block body against the loop it replaced
 accumulators and generator against the eager path bit for bit (the
 capture stood in for by the phase functions themselves: the card's
 ``chip_smoke.py epoch_graph`` checks the real graphs), the launch counters
-of replays, the counters on the open span, and the benchmark's reader of
-``em_step.graph_share``."""
+of replays, the counters on the open span, and the benchmark's readers of
+``em_step.graph_share`` and ``suffstat.sparse_share``."""
 
 import dataclasses
 import os
@@ -351,4 +351,17 @@ def _records(window_counts, outside_counts):
 def test_graph_share_reads_the_window(window, want):
     read = spec.reader("em_step.graph_share")
     outside = [{"em_step.blocks": 25}, {"em_step.blocks": 25}]
+    assert read(SimpleNamespace(records=_records(window, outside), epochs=len(window))) == want
+
+
+@pytest.mark.parametrize("window,want", [
+    ([{"suffstat.sparse_rows": 262144, "suffstat.dense_rows": 0}] * 3, 100.0),
+    ([{"suffstat.sparse_rows": 300, "suffstat.dense_rows": 100},
+      {"suffstat.sparse_rows": 500, "suffstat.dense_rows": 100}], 80.0),
+    ([{"suffstat.sparse_rows": 0, "suffstat.dense_rows": 0}] * 2, None),  # nothing summed
+    ([{"ea.children": 10}] * 2, None),  # a program without the counters, or ES3C
+])
+def test_sparse_share_reads_the_window(window, want):
+    read = spec.reader("suffstat.sparse_share")
+    outside = [{"suffstat.sparse_rows": 0, "suffstat.dense_rows": 9}] * 2
     assert read(SimpleNamespace(records=_records(window, outside), epochs=len(window))) == want

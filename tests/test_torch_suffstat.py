@@ -56,7 +56,10 @@ def _edge_case(case, packed):
     """(int8 states [B, S, H], responsibilities [B, S], Pallas block_rows) of
     one end of the density range the CUDA kernel handles apart.  The ragged
     width is H = 100, or 104 for packed states (evo_tpu's packed kernel
-    unpacks 8 ceil(H/8) latents, so it takes H a multiple of 8 only)."""
+    unpacks 8 ceil(H/8) latents, so it takes H a multiple of 8 only).
+    EA-converged states (the kernel's skewed case): each datapoint's 64
+    unique states are one- and two-bit flips of its own 2-unit core, so its
+    core units are on in most of its rows."""
     rng = np.random.default_rng(len(case))
     B, S, H, block_rows = 64, 8, 40, 64
     if case == "ragged_H":
@@ -74,6 +77,17 @@ def _edge_case(case, packed):
         ss[5, 3] = rng.random(H) < 0.5
     elif case in ("ragged_H", "B_not_multiple_of_block_rows"):
         ss = (rng.random((B, S, H)) < rng.random((B, 1, 1))).astype(np.int8)
+    elif case == "ea_converged":
+        S, half = 64, 32
+        core = np.zeros((B, H), np.int8)
+        np.put_along_axis(core, np.argsort(rng.random((B, H)), 1)[:, :2], 1, 1)
+        q = np.argsort(rng.random((B, H)), 1)  # the flipped units, in this order
+        flips = np.zeros((B, S, H), np.int8)
+        b, j = np.arange(B)[:, None], np.arange(half)
+        flips[b, j, q[:, j]] = 1
+        flips[b, half + j, q[:, j]] = 1
+        flips[b, half + j, q[:, j + 1]] = 1
+        ss = core[:, None, :] ^ flips
     r = rng.random((B, S)).astype(np.float32)
     rs = (r / r.sum(1, keepdims=True)).astype(np.float32)
     if case == "rs_exactly_0":
@@ -85,14 +99,19 @@ def _edge_case(case, packed):
 
 @pytest.mark.parametrize("packed", [False, True], ids=["int8", "packed"])
 @pytest.mark.parametrize("case", ["no_bit", "every_bit", "one_dense_row", "ragged_H",
-                                  "B_not_multiple_of_block_rows", "rs_exactly_0"])
+                                  "B_not_multiple_of_block_rows", "rs_exactly_0",
+                                  "ea_converged"])
 def test_plain_suffstat_density_edges_match_pallas_interpret(case, packed):
     """The ends of the density range (rows with no bit or every bit on, one
     dense row among sparse ones, a ragged H, a B that is not a multiple of
-    the default block rows, rows with rs exactly 0) against evo_tpu's
-    kernel: the same tolerances, and packed states equal to int8 ones."""
+    the default block rows, rows with rs exactly 0) and EA-converged states
+    against evo_tpu's kernel: the same tolerances, and packed states equal
+    to int8 ones."""
     ss, rs, block_rows = _edge_case(case, packed)
     B, S, H = ss.shape
+    if case == "ea_converged":  # unique states, and the core on in most rows
+        assert all(len(np.unique(ss[i], axis=0)) == S for i in range(B))
+        assert (ss.sum(1).max(1) >= S - 4).all()
     x = pack_bits_lane_host(ss) if packed else ss
     want = bsc_suffstat_pallas(jnp.asarray(x), jnp.asarray(rs), H=H, block_rows=block_rows,
                                interpret=True)

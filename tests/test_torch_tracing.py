@@ -14,7 +14,9 @@ import pytest
 import torch
 
 from evo_tpu_torch import BSC, SSSC, init_states, make_data
+from evo_tpu_torch.apps import training
 from evo_tpu_torch.apps.training import EMTrainer
+from evo_tpu_torch.ops.bsc_suffstat import row_counts
 from evo_tpu_torch.utils import tracing
 from evo_tpu_torch.utils.datalog import DataHandler, DataLog
 
@@ -315,6 +317,31 @@ def test_tracing_changes_no_bit_of_the_run(tmp_path, model_name):
         assert torch.equal(getattr(off.params, name), getattr(on.params, name)), name
     assert torch.equal(off.estate.ss, on.estate.ss)
     assert torch.equal(off.estate.lpj, on.estate.lpj)
+
+
+@pytest.mark.parametrize("trace", [True, False], ids=["traced", "untraced"])
+def test_the_suffstat_row_counters_are_read_only_while_spans_are_recorded(tmp_path, monkeypatch,
+                                                                          trace):
+    """The trainer reads the kernel's row counters (a transfer from the
+    card) after each stats transfer of a traced run, onto its em_step
+    span, and never in an untraced run; on the CPU there is nothing to
+    read."""
+    assert row_counts("cpu") is None
+    calls = []
+
+    def counts(device):
+        calls.append(device)
+        return 7 * len(calls), len(calls) % 2
+
+    monkeypatch.setattr(training, "row_counts", counts)
+    tr, _, _ = _trainer(tmp_path, "bsc", trace=trace)
+    if not trace:
+        assert calls == []
+        return
+    assert calls == [tr.data.y.device] * 4
+    steps = [s for s in tracing.records().spans if s.name == "em_step"]
+    assert [(s.counts["suffstat.sparse_rows"], s.counts["suffstat.dense_rows"])
+            for s in steps] == [(7, 1), (14, 0), (21, 1), (28, 0)]
 
 
 READERS = [f"em_step.{p}_{side}_ms" for side in ("host", "device")
