@@ -1,15 +1,16 @@
-"""CUDA graphs of the phases of a data block, for ``BSC.em_step``.
+"""CUDA graphs of the phases of a data block, for the epoch runner
+(``models/epoch.py``).
 
-An EBSC epoch on complete data runs the same chain of small launches in
-every block: ``block_gram`` and K^(n)'s lpj, the EA, the merge, the
-sufficient statistics.  Launched op by op from Python, the chain costs the
+An epoch on complete data runs the same chain of small launches in every
+block: ``block_gram`` and K^(n)'s lpj, the EA, the merge, the sufficient
+statistics.  Launched op by op from Python, the chain costs the
 host more time than the card spends on it.  ``PhaseGraphs`` captures each
 phase of a block once as a CUDA graph and replays the graphs in every later
 block, so that the host issues one launch a phase:
 
 - the block's inputs are copied into static buffers before its replays, and
   its outputs are read from the graphs' static outputs after them;
-- the model copies Theta and its precomputed scalars into static buffers
+- the runner copies Theta and its precomputed scalars into static buffers
   once an epoch; the accumulators are static and zeroed once an epoch
   (``begin_epoch``), and the epoch reads copies of them (``end_epoch``);
 - the phases draw from one generator registered with the graphs, which
@@ -24,6 +25,7 @@ block, so that the host issues one launch a phase:
 
 Each replay adds the kernel launches its graph captured to the kernel
 wrappers' launch counters, as the eager path counts them.
+``engages`` holds the mechanism's own conditions; each model adds its own.
 """
 
 from __future__ import annotations
@@ -32,17 +34,16 @@ from types import SimpleNamespace
 
 import torch
 
-from evo_tpu_torch.ops import bsc_lpj
 from evo_tpu_torch.utils import tracing
 
 
-def engages(device, incomplete: bool, H: int, exact: bool, do_reconstruction: bool) -> bool:
-    """Whether an epoch's blocks replay captured graphs: on a CUDA device,
-    on complete data without a reconstruction, at the lpj kernel's widths
-    (H <= ``ops.bsc_lpj.MAX_H``) and in an EA epoch.  The blocks of an
-    epoch are slices of the blocked data, so they share one shape."""
+def engages(device, incomplete: bool, exact: bool, do_reconstruction: bool) -> bool:
+    """Whether the mechanism can replay an epoch's blocks: on a CUDA
+    device, on complete data without a reconstruction and in an EA epoch.
+    The blocks of an epoch are slices of the blocked data, so they share
+    one shape."""
     return (torch.device(device).type == "cuda" and not incomplete
-            and H <= bsc_lpj.MAX_H and not exact and not do_reconstruction)
+            and not exact and not do_reconstruction)
 
 
 class PhaseGraphs:

@@ -8,28 +8,32 @@ The slab z is marginalized in closed form per binary state s (Sheikh et al.
 2014): with G = W^T W, Wty = W^T y and y2 = ||y||^2 precomputed once per
 block, every per-state quantity is an |s| x |s| solve, independent of D.
 
-An epoch (``em_step``) is a Python loop over the data blocks.  In each
-block the lpj of K^(n) and of each generation's children go through the
-``sssc_lpj`` kernel, the merged states' sufficient statistics through the
-``sssc_suffstat`` kernel (which solves the merged states again, as
-evo_tpu's kernel path does), and the rest is plain PyTorch on the same
-device.  evo_tpu's XLA path stashes the candidate solves instead
+An epoch (``em_step``) is the runner that ``SSSC`` shares with ``BSC``
+(``models/epoch.py``; reference SSSC.EM_step, sssc.py:420-813).  This
+model supplies the math: the lpj through the ``sssc_lpj`` kernel, the
+merged states' statistics through the ``sssc_suffstat`` kernel, which
+solves the merged states again as evo_tpu's kernel path does
+(``_suffstat_phase``), and the M-step; the rest is plain PyTorch on the
+same device.  evo_tpu's XLA path stashes the candidate solves instead
 (``STASH_MAX_H``); that is an XLA strategy and is not carried over.  The
-epoch's phases are the tracing spans that ``BSC.em_step`` opens.
+blocks are not graphed yet (``_graphable``); ``_theta`` is the set of
+static buffers they would read.
 
 Incomplete data (NaN entries in ``make_data``) run under the per-datapoint
 Gram G_n = W^T diag(m_n) W, built one block at a time, through the masked
 kernels (``sssc_lpj_masked``, ``sssc_suffstat_masked``), and need
 ``do_reconstruction=True`` as in evo_tpu; the reconstruction
 y_rec = where(x, y, <sz> W^T) is returned blocked [nb, B, D] and feeds the
-W update.
+W update, and the sigma2 update reads the observed entries of the
+original y.
 
 With ``EAConfig.packed_states`` the state sets are stored lane-major
 bit-packed; each block is unpacked to int8 at its start and the merged set
-packed at its end, as in evo_tpu (evo_tpu/models/sssc.py:486-487, 597),
-which routes packed ES3C to XLA; the port runs its kernels on the unpacked
-block.  The permanent states (``allzero``, ``background``) and the merges
-``swap_merge`` and ``unification=False`` run as in evo_tpu.
+packed at its end (``_states_in``, ``_states_out``), as in evo_tpu
+(evo_tpu/models/sssc.py:486-487, 597), which routes packed ES3C to XLA;
+the port runs its kernels on the unpacked block.  The permanent states
+(``allzero``, ``background``) and the merges ``swap_merge`` and
+``unification=False`` run as in evo_tpu.
 
 Widths: the kernels cover H <= 128 on complete data and H <= 64 on
 incomplete data (``ops.sssc_lpj.MAX_H``, ``MASKED_MAX_H``).  Wider models
@@ -60,15 +64,8 @@ import numpy as np
 import torch
 
 from evo_tpu_torch._device import resolve_device
-from evo_tpu_torch.models.base import (
-    Data,
-    StepStats,
-    block_gram,
-    check_em_step,
-    host_data,
-    sum_over_ranks,
-    total_free_energy,
-)
+from evo_tpu_torch.models.base import Data, host_data
+from evo_tpu_torch.models.epoch import EMModel
 from evo_tpu_torch.ops import sssc_lpj as sssc_lpj_ops
 from evo_tpu_torch.ops.bitpack import pack_bits_lane, unpack_bits_lane
 from evo_tpu_torch.ops.linalg import equilibrated_pd_inverse
@@ -82,9 +79,6 @@ from evo_tpu_torch.ops.sssc_suffstat import moments, sssc_suffstat
 from evo_tpu_torch.parallel import distributed
 from evo_tpu_torch.utils import tracing
 from evo_tpu_torch.variational.config import EAConfig
-from evo_tpu_torch.variational.evolve import evolve_states_block
-from evo_tpu_torch.variational.state_init import EState, full_state_matrix
-from evo_tpu_torch.variational.varykn import merge_states
 
 PARAM_TOL = 1e-5  # reference noise_policy bounds (sssc.py:40,51-58)
 EPS_PIES = 5e-5
@@ -220,7 +214,7 @@ class SSSCParams:
 
 
 @dataclasses.dataclass(frozen=True)
-class SSSC:
+class SSSC(EMModel):
     """Static model configuration.  ``device`` None means the CUDA card."""
 
     D: int
@@ -239,10 +233,15 @@ class SSSC:
         return self.H > limit
 
     def _lpj_fns(self, data: Data):
-        """(lpj, suffstat) functions of this model's path on ``data``."""
+        """(lpj, suffstat) functions of this model's path on ``data`` (or a
+        block's ``io``, which says whether it is incomplete)."""
         if self.wide(data):
             return sssc_lpj_wide, sssc_suffstat_wide
         return sssc_lpj, sssc_suffstat
+
+    def _graphable(self, data: Data) -> bool:
+        """Whether the blocks may replay CUDA graphs: not yet."""
+        return False
 
     # ------------------------------------------------------------------ init
 
@@ -349,122 +348,63 @@ class SSSC:
                     piH=p.pies.sum(), ljc=ljc, N=N, sum_d=sum_d)
 
     # ---------------------------------------------------------------- E-step
+    #
+    # The math of the runner's phases (``models/epoch.py``).
 
-    def _estep_block(self, generator, ss_b, G_b, Wty_b, y2_b, valid_b, params, pre,
-                     cfg: EAConfig, lpj_fn, rows=None):
-        """Evolutionary E-step of one block [B, ...] (mirrors BSC's), the
-        lpj by ``lpj_fn`` (the kernel's or the wide path's), the EA's draws
-        those of the global block's ``rows`` (see BSC's).  Returns (ss2,
-        lpj2, n_uni [B], n_sub [B], reset counts [3])."""
+    @staticmethod
+    def _theta(params: SSSCParams, pre: dict) -> dict:
+        return dict(W=params.W, Psi=params.Psi, mus=params.mus, pil_bar=pre["pil_bar"],
+                    sigma2_inv=pre["sigma2_inv"], piH=pre["piH"])
 
-        dev = ss_b.device
+    def _lpj(self, io, cfg: EAConfig, states):
+        """(lpj [B, K], None, reset counts [3]) of states [B, K, H] int8
+        under the block's Gram, by the kernel or the wide path; the EA keys
+        the states itself."""
+        lpj, _bad = self._lpj_fns(io)[0](states, io.Wty, io.y2, io.G, io.Psi, io.mus,
+                                         io.pil_bar, io.sigma2_inv)
+        lpj, counts = reset_lpj(lpj, valid=io.valid)
+        return lpj, None, torch.stack(counts)
 
-        def lpj_block(states):
-            with tracing.span("em_step.lpj", dev):
-                lpj, _bad = lpj_fn(states, Wty_b, y2_b, G_b, params.Psi, params.mus,
-                                   pre["pil_bar"], pre["sigma2_inv"])
-                lpj, counts = reset_lpj(lpj, valid=valid_b)
-                return lpj, None, torch.stack(counts)
+    def _states_in(self, ss, cfg: EAConfig):
+        return unpack_bits_lane(ss, self.H).to(torch.int8) if cfg.packed_states else ss
 
-        lpj_K, _, counts = lpj_block(ss_b)
-        if cfg.exact:
-            zeros = torch.zeros(ss_b.shape[0], dtype=torch.int64, device=dev)
-            return ss_b, lpj_K, zeros, zeros, counts
-        with tracing.span("em_step.ea", dev):
-            children, child_lpj, new_unique, child_lpj_raw, aux = evolve_states_block(
-                ss_b, lpj_K, lpj_block, cfg, pre["piH"], generator, rows=rows)
-            counts = counts + sum(aux)
-        with tracing.span("em_step.merge", dev):
-            ss2, lpj2, n_uni, n_sub, _ = merge_states(cfg, ss_b, lpj_K, children, child_lpj,
-                                                      new_unique, child_lpj_raw)
-        return ss2, lpj2, n_uni, n_sub, counts
+    def _states_out(self, ss, cfg: EAConfig):
+        return pack_bits_lane(ss) if cfg.packed_states else ss
 
-    # ---------------------------------------------------------------- epoch
+    def _suffstat_phase(self, io, acc, cfg: EAConfig):
+        """F, responsibilities, the suffstat kernel (or the wide path's),
+        the reconstruction into ``io.y_rec`` (unless None) and the M-step
+        sums into ``acc``; the stored lpj (the all-zero state's first with
+        ``allzero``) is ``io.lpj_full``."""
+        dt, lpj2 = io.W.dtype, io.lpj2
+        if cfg.allzero:  # the permanent all-zero state (evo_tpu sssc.py:467-469)
+            lpj2 = torch.cat([-0.5 * io.sigma2_inv * io.y2[:, None], lpj2], 1)
+        vf = io.valid.to(dt)
+        acc.Fsum += (shifted_logsumexp(lpj2) * vf).sum()
+        rs = (posterior_weights(lpj2) * vf[:, None])[:, cfg.S_perm:].contiguous()
+        xpt_sz, xpt_s, xpt_ss, xpt_szsz, s_sz, sz_sz = self._lpj_fns(io)[1](
+            io.ss2, rs, io.Wty, io.G, io.Psi, io.mus, io.sigma2_inv)
+        y_m = io.y
+        if io.y_rec is not None:
+            est = xpt_sz @ io.W.T
+            io.y_rec.copy_(torch.where(io.x, io.y, est))
+            if io.incomplete:
+                y_m = io.y_rec
+                acc.trWszszW += (io.x_infr * est * est).sum()
+        acc.Wp += y_m.T @ xpt_sz
+        acc.xpt_s += xpt_s.sum(0)
+        acc.xpt_sz += xpt_sz.sum(0)
+        acc.xpt_ss += xpt_ss
+        acc.xpt_szsz += xpt_szsz
+        acc.s_sz_outer += s_sz
+        acc.sz_sz_outer += sz_sz
+        acc.y2sum += (io.y2 * vf).sum()
+        io.lpj_full = lpj2
 
-    def em_step(self, params: SSSCParams, estate: EState, data: Data,
-                generator: torch.Generator, cfg: EAConfig, do_reconstruction: bool = False):
-        """One EM epoch: E-step, optional reconstruction and M-step over all
-        blocks (reference SSSC.EM_step, sssc.py:420-813).
-
-        Returns (new_params, new_estate, stats, y_rec [nb, B, D] or None).
-        As in evo_tpu, F is the free energy of the updated K^(n) under the
-        old parameters, and the M-step consumes the merged states; on
-        incomplete data its W update reads the reconstruction, and its
-        sigma2 update the observed entries of the original y.
-        ``generator`` (on the data's device) drives every random draw of
-        the EA; under a process group every rank passes the same one.
-        There the statistics, counters and F are summed over the ranks in
-        one all_reduce after the blocks; without a group nothing is issued."""
-        check_em_step(data, do_reconstruction)
-        lpj_fn, suffstat_fn = self._lpj_fns(data)
-        params = self.check_params(params)
-        pre = self._precompute(params, data)
-        rows = distributed.block_rows(data.y.shape[1])
-        dt, dev, H = params.W.dtype, params.W.device, self.H
-        acc = {k: torch.zeros((H, H), dtype=dt, device=dev)
-               for k in ("xpt_ss", "xpt_szsz", "s_sz_outer", "sz_sz_outer")}
-        acc.update(xpt_s=torch.zeros((H,), dtype=dt, device=dev),
-                   xpt_sz=torch.zeros((H,), dtype=dt, device=dev),
-                   Wp=torch.zeros((self.D, H), dtype=dt, device=dev),
-                   y2sum=torch.zeros((), dtype=dt, device=dev),
-                   trWszszW=torch.zeros((), dtype=dt, device=dev))
-        Fsum = torch.zeros((), dtype=dt, device=dev)
-        nuni = torch.zeros((), dtype=torch.int64, device=dev)
-        nsub = torch.zeros((), dtype=torch.int64, device=dev)
-        resets = torch.zeros((3,), dtype=torch.int64, device=dev)
-        ss_all = torch.empty_like(estate.ss)
-        lpj_all = torch.empty_like(estate.lpj)
-        y_rec_all = torch.empty_like(data.y) if do_reconstruction else None
-
-        for i in range(data.n_blocks):
-            y_b, valid_b = data.y[i], data.row_valid[i]
-            with tracing.span("em_step.lpj", dev):
-                G_b, Wty_b, y2_b = block_gram(params.W, y_b, data.x_infr[i], data.incomplete)
-                ss_b = estate.ss[i]
-                if cfg.packed_states:
-                    ss_b = unpack_bits_lane(ss_b, H).to(torch.int8)
-            ss2, lpj2, n_uni, n_sub, counts = self._estep_block(
-                generator, ss_b, G_b, Wty_b, y2_b, valid_b, params, pre, cfg, lpj_fn, rows)
-            with tracing.span("em_step.suffstat", dev):
-                if cfg.allzero:  # the permanent all-zero state (evo_tpu sssc.py:467-469)
-                    lpj2 = torch.cat([-0.5 * pre["sigma2_inv"] * y2_b[:, None], lpj2], 1)
-                vf = valid_b.to(dt)
-                Fsum += (shifted_logsumexp(lpj2) * vf).sum()
-                rs = (posterior_weights(lpj2) * vf[:, None])[:, cfg.S_perm:].contiguous()
-                xpt_sz, xpt_s, xpt_ss, xpt_szsz, s_sz, sz_sz = suffstat_fn(
-                    ss2, rs, Wty_b, G_b, params.Psi, params.mus, pre["sigma2_inv"])
-                y_m = y_b
-                if do_reconstruction:
-                    est = xpt_sz @ params.W.T
-                    y_rec_all[i] = torch.where(data.x[i], y_b, est)
-                    if data.incomplete:
-                        y_m = y_rec_all[i]
-                        acc["trWszszW"] += (data.x_infr[i] * est * est).sum()
-                acc["Wp"] += y_m.T @ xpt_sz
-                acc["xpt_s"] += xpt_s.sum(0)
-                acc["xpt_sz"] += xpt_sz.sum(0)
-                acc["xpt_ss"] += xpt_ss
-                acc["xpt_szsz"] += xpt_szsz
-                acc["s_sz_outer"] += s_sz
-                acc["sz_sz_outer"] += sz_sz
-                acc["y2sum"] += (y2_b * vf).sum()
-                nuni += (n_uni * valid_b).sum()
-                nsub += (n_sub * valid_b).sum()
-                resets += counts
-                ss_all[i] = pack_bits_lane(ss2) if cfg.packed_states else ss2
-                lpj_all[i] = lpj2
-
-        with tracing.span("em_step.mstep", dev):
-            pre, acc, tot = sum_over_ranks(self, params, data, pre, acc,
-                                           dict(Fsum=Fsum, nuni=nuni, nsub=nsub, resets=resets))
-            new_params, guards = self._m_step_finalize(params, acc, pre, data.incomplete, cfg)
-            N, resets = pre["N"], tot["resets"]
-            zero = torch.zeros((), dtype=torch.int64, device=dev)
-            stats = StepStats(
-                F=pre["ljc"] + tot["Fsum"] / N, S_nunique=tot["nuni"] / N, S_sub=tot["nsub"] / N,
-                n_reset_nan=resets[0], n_reset_small=resets[1], n_reset_inf=resets[2],
-                n_guard_sigma_floor=zero, **guards)
-        return new_params, EState(ss=ss_all, lpj=lpj_all), stats, y_rec_all
+    def _sum_shapes(self) -> dict:
+        H = self.H
+        return dict(xpt_ss=(H, H), xpt_szsz=(H, H), s_sz_outer=(H, H), sz_sz_outer=(H, H),
+                    xpt_s=(H,), xpt_sz=(H,), Wp=(self.D, H), y2sum=(), trWszszW=())
 
     # ---------------------------------------------------------------- M-step
 
@@ -476,16 +416,14 @@ class SSSC:
         collapsed, Psi's elementwise reference form, the sigma2 shortcut
         over the posterior-mean reconstructions (on incomplete data over
         their observed entries, plus sum_d times the old sigma2), and in
-        f32 the gauge fix diag(Psi) = 1.  Returns (params, guard fields of
-        StepStats)."""
+        f32 the gauge fix diag(Psi) = 1.  Returns (params, the guard fields
+        of StepStats it sets)."""
         N, D, H = pre["N"], self.D, self.H
         dt, dev = params.W.dtype, params.W.device
         f64 = dt == torch.float64
         new = dict(W=params.W, pies=params.pies, mus=params.mus, Psi=params.Psi,
                    sigma2=params.sigma2)
-        guards = dict(n_guard_mus_freeze=torch.zeros((), dtype=torch.int64, device=dev),
-                      n_guard_psi_freeze=torch.zeros((), dtype=torch.int64, device=dev),
-                      guard_psi_renorm=torch.zeros((), dtype=torch.float32, device=dev))
+        guards = {}
         alive = acc["xpt_s"] > 1e-4 * N
 
         if "W" in self.to_learn:
@@ -524,33 +462,3 @@ class SSSC:
             new["W"] = new["W"] * d[None, :]
             guards["guard_psi_renorm"] = torch.log(d).abs().max().to(torch.float32)
         return SSSCParams(**new), guards
-
-    # ----------------------------------------------------------- free energy
-
-    def exact_free_energy(self, params: SSSCParams, data: Data) -> torch.Tensor:
-        """Exact log-likelihood by enumerating all 2^H states (small H): the
-        correctness oracle (reference _models.py:334-451), over every rank
-        under a process group."""
-        lpj_fn = self._lpj_fns(data)[0]
-        params = self.check_params(params)
-        pre = self._precompute(params, data)
-        sm = torch.from_numpy(full_state_matrix(self.H).view(np.int8)).to(params.W.device)
-        Fsum = torch.zeros((), dtype=params.W.dtype, device=params.W.device)
-        for i in range(data.n_blocks):
-            y_b = data.y[i]
-            G_b, Wty_b, y2_b = block_gram(params.W, y_b, data.x_infr[i], data.incomplete)
-            states = sm.expand(y_b.shape[0], -1, -1).contiguous()
-            lpj, _ = lpj_fn(states, Wty_b, y2_b, G_b, params.Psi, params.mus,
-                            pre["pil_bar"], pre["sigma2_inv"])
-            lpj, _ = reset_lpj(lpj)
-            Fsum += (shifted_logsumexp(lpj) * data.row_valid[i].to(lpj.dtype)).sum()
-        return total_free_energy(self, params, data, pre, Fsum)
-
-    def free_energy(self, params: SSSCParams, estate: EState, data: Data) -> torch.Tensor:
-        """Truncated free energy from the stored lpj (over every rank under
-        a process group)."""
-        params = self.check_params(params)
-        pre = self._precompute(params, data)
-        lpj = estate.lpj.reshape(-1, estate.lpj.shape[-1])
-        Fsum = (shifted_logsumexp(lpj) * data.row_valid.reshape(-1).to(lpj.dtype)).sum()
-        return total_free_energy(self, params, data, pre, Fsum)

@@ -1,7 +1,8 @@
-"""The CUDA graphs of an EBSC block's phases (evo_tpu_torch/models/
-block_graphs.py) and the phase-split block body of ``BSC.em_step``, on the
-CPU: when the graphs engage, the block body against the loop it replaced
-(kept below as the reference), the graphed path's static buffers,
+"""The CUDA graphs of a block's phases (evo_tpu_torch/models/
+block_graphs.py) and EBSC's epoch through the phases of the shared block
+runner (models/epoch.py), on the CPU: when the graphs engage (the
+mechanism's rule and each model's), the block body against the loop it
+replaced (kept below as the reference), the graphed path's static buffers,
 accumulators and generator against the eager path bit for bit (the
 capture stood in for by the phase functions themselves: the card's
 ``chip_smoke.py epoch_graph`` checks the real graphs), the launch counters
@@ -17,7 +18,7 @@ import numpy as np
 import pytest
 import torch
 
-from evo_tpu_torch import BSC, init_states, make_data
+from evo_tpu_torch import BSC, SSSC, init_states, make_data
 from evo_tpu_torch.models import block_graphs
 from evo_tpu_torch.models.base import StepStats, block_gram, epoch_generator, sum_over_ranks
 from evo_tpu_torch.models.bsc import lpj_gram
@@ -47,17 +48,24 @@ def _closed():
     tracing.close(archive=None)
 
 
-@pytest.mark.parametrize("device,incomplete,Hx,exact,rec,want", [
-    ("cuda", False, 256, False, False, True),  # the north-star cell
-    ("cuda:0", False, 1024, False, False, True),  # the kernel's widest
-    ("cpu", False, 256, False, False, False),
-    ("cuda", True, 256, False, True, False),  # incomplete data
-    ("cuda", False, 1025, False, False, False),  # the wide path
-    ("cuda", False, 10, True, False, False),  # exact mode
-    ("cuda", False, 256, False, True, False),  # an epoch with reconstruction
+@pytest.mark.parametrize("model,device,incomplete,Hx,exact,rec,want", [
+    (BSC, "cuda", False, 256, False, False, True),  # the north-star cell
+    (BSC, "cuda:0", False, 1024, False, False, True),  # the kernel's widest
+    (BSC, "cpu", False, 256, False, False, False),
+    (BSC, "cuda", True, 256, False, True, False),  # incomplete data
+    (BSC, "cuda", False, 1025, False, False, False),  # the wide path
+    (BSC, "cuda", False, 10, True, False, False),  # exact mode
+    (BSC, "cuda", False, 256, False, True, False),  # an epoch with reconstruction
+    (SSSC, "cuda", False, 32, False, False, False),  # ES3C's blocks are not graphed
 ])
-def test_engages_only_where_the_graphs_run(device, incomplete, Hx, exact, rec, want):
-    assert block_graphs.engages(torch.device(device), incomplete, Hx, exact, rec) is want
+def test_engages_only_where_the_graphs_run(model, device, incomplete, Hx, exact, rec, want):
+    dev = torch.device(device)
+    # the mechanism's own conditions know no model and no width
+    assert block_graphs.engages(dev, incomplete, exact, rec) is (
+        dev.type == "cuda" and not (incomplete or exact or rec))
+    m = model(D=4, H=Hx, device="cpu")
+    data, cfg = SimpleNamespace(incomplete=incomplete), SimpleNamespace(exact=exact)
+    assert m._graphs_engage(dev, data, cfg, rec) is want
 
 
 def _problem(seed=0, missing=0.0, **opts):
@@ -190,10 +198,11 @@ def _em_step_before(model, params, estate, data, generator, cfg, do_reconstructi
         nsub += (n_sub * valid_b).sum()
         resets += counts
         ss_all[i], lpj_all[i] = ss2, lpj_full
-    acc = dict(Wp=Wp, Wq=Wq, pies=pies, sigma=sig)
+    acc = dict(Wp=Wp, Wq=Wq, pies=pies, sig=sig)
     pre, acc, tot = sum_over_ranks(model, params, data, pre, acc,
                                    dict(Fsum=Fsum, nuni=nuni, nsub=nsub, resets=resets))
-    new_params, guard = model._m_step_finalize(params, acc, pre, data.incomplete, cfg)
+    new_params, guards = model._m_step_finalize(params, acc, pre, data.incomplete, cfg)
+    guard = guards["n_guard_sigma_floor"]  # the flag, sigma being learned
     N, resets = pre["N"], tot["resets"]
     z = torch.zeros_like(guard)
     stats = StepStats(
