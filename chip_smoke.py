@@ -127,8 +127,25 @@ Phases, one line each with its seconds:
                widths in 4 blocks of 4,096 (the cell's shapes, an uneven last
                block, packed states): 3 epochs bit for bit alike, launch
                counts alike, one capture each; incomplete data and exact mode
-               run eagerly; host ms per epoch of both paths
+               run eagerly; host ms per epoch of both paths; the merge
+               kernel launched once a block on both paths, inside the
+               captured merge graph on the graphed one
+ 25. merge     the unification merge's kernel (csrc/varykn_merge.cu)
+               against its plain twin vary_Kn_plain bit for bit (K^(n),
+               lpj bits, n_sub, idx; then relaunched): the EBSC block
+               (4,096 x 64 + 10 x 256 int8) and its packed form (32-byte
+               rows), ES3C inpainting's block (151,209 x 20 + 10 x 32), the
+               wide cell's (62,001 x 64 + 10 x 256), Mprime < T, ties (-inf
+               duplicates, equal lpjs across old and new rows, signed
+               zeros, NaN), widths 25, 13, 100 and 50, a row pointer off
+               16-byte alignment, S + T past a warp's 256 (a block a
+               datapoint), at the cap and no children; each
+               timed per call and from a CUDA graph beside its bytes bound
+               and the plain twin's time; then 3 graphed EBSC epochs at
+               phase 24's cell shapes with the kernel, bit for bit the same
+               epochs with the plain twin
 `python3 chip_smoke.py epoch_graph` runs phases 1, 2 and 24 alone;
+`python3 chip_smoke.py merge` phases 1, 2 and 25;
 `python3 chip_smoke.py suffstat` phases 1 and 2 and the EBSC suffstat
 kernel's density checks and timings of phase 3.
 The kernels phase also holds the ES3C kernels, the masked ones (incomplete
@@ -212,12 +229,14 @@ from evo_tpu_torch.ops.sssc_suffstat import (
     sssc_suffstat_masked,
     sssc_suffstat_plain,
 )
+from evo_tpu_torch.ops.varykn_merge import vary_Kn_plain, varykn_merge
 from evo_tpu_torch.models.sssc import sssc_lpj_wide
 from evo_tpu_torch.prepost import MultiDimOverlappingPatches, psnr
 from evo_tpu_torch.prepost.device_merge import DeviceMerger
 from evo_tpu_torch.utils.checkpoint import load_checkpoint
 from evo_tpu_torch.utils import tracing
 from evo_tpu_torch.utils.datalog import DataLog, StoreToTxt
+from evo_tpu_torch.variational import varykn
 from evo_tpu_torch.variational.state_init import EState
 
 DEADLINE_S = 600
@@ -2536,6 +2555,7 @@ def graph_epochs(model, data, cfg, estate, params, launches, n_epochs=GRAPH_EPOC
     tmp = tempfile.mkdtemp(prefix="epoch_graph-")
     tracing.set_tracefile(os.path.join(tmp, "trace.txt"))
     launches.reset()
+    varykn_merge.launches = 0
     out, host_ms, card_ms, base = [], [], [], 0
     for e in range(n_epochs):
         if e == 1:
@@ -2554,7 +2574,8 @@ def graph_epochs(model, data, cfg, estate, params, launches, n_epochs=GRAPH_EPOC
     peak = torch.cuda.max_memory_allocated() - base
     tracing.close(archive=None)
     counts = [s.counts for s in tracing.records().spans if s.name == "em_step"]
-    return out, counts, launches.counts(), host_ms, card_ms, peak
+    return out, counts, dict(launches.counts(), merge=varykn_merge.launches), host_ms, card_ms, \
+        peak
 
 
 def same_epochs(label, graphed, eager):
@@ -2580,17 +2601,19 @@ def epoch_graph(launches):
     an uneven last block (3 padding rows) and packed states.  K^(n), lpj,
     Theta and every stat bit for bit alike each epoch, the launch counts
     alike, one capture per shape (in the first epoch, whose first block
-    runs eagerly); then incomplete data with reconstruction and exact mode
-    run eagerly.  Prints host ms per epoch of both paths and the peak
-    memory above the epochs' inputs."""
+    runs eagerly), the merge kernel once a block on both paths; then
+    incomplete data with reconstruction and exact mode run eagerly.
+    Prints host ms per epoch of both paths and the peak memory above the
+    epochs' inputs."""
     cfg, estate = init_states(N=GRAPH_BLOCKS * B, S=S, H=H, no_parents=N_PARENTS,
                               no_children=N_CHILDREN, no_generations=N_GENERATIONS,
                               n_blocks=GRAPH_BLOCKS, seed=0, device=DEVICE)
     packed = (dataclasses.replace(cfg, packed_states=True),
               EState(ss=pack_bits_lane(estate.ss), lpj=estate.lpj))
     nb = GRAPH_BLOCKS
-    want = [{"em_step.blocks": nb, "em_step.graph_blocks": nb - 1, "em_step.graph_captures": 1}]
-    want += [{"em_step.blocks": nb, "em_step.graph_blocks": nb}] * (GRAPH_EPOCHS - 1)
+    kernel = {"em_step.blocks": nb, "merge.kernel_blocks": nb}
+    want = [dict(kernel, **{"em_step.graph_blocks": nb - 1, "em_step.graph_captures": 1})]
+    want += [dict(kernel, **{"em_step.graph_blocks": nb})] * (GRAPH_EPOCHS - 1)
     for label, n_rows, cfg_c, est in (("cell", nb * B, cfg, estate),
                                       ("uneven", nb * B - 3, cfg, estate),
                                       ("packed", nb * B, *packed)):
@@ -2604,9 +2627,9 @@ def epoch_graph(launches):
         (g_out, g_counts, g_launch, g_host, g_card, g_peak) = runs["graphed"]
         (e_out, e_counts, e_launch, e_host, e_card, e_peak) = runs["eager"]
         same_epochs(label, g_out, e_out)
-        if g_counts != want or e_counts != [{"em_step.blocks": nb}] * GRAPH_EPOCHS:
+        if g_counts != want or e_counts != [kernel] * GRAPH_EPOCHS:
             raise AssertionError(f"{label}: counters graphed {g_counts}, eager {e_counts}")
-        if g_launch != e_launch:
+        if g_launch != e_launch or g_launch["merge"] != nb * GRAPH_EPOCHS:
             raise AssertionError(f"{label}: launches graphed {g_launch}, eager {e_launch}")
         say(f"{label}: {nb} blocks x {B} rows, packed {cfg_c.packed_states}: bit for bit alike "
             f"over {GRAPH_EPOCHS} epochs; F {[round(float(s.F), 4) for *_, s in g_out]}")
@@ -2620,15 +2643,118 @@ def epoch_graph(launches):
     # incomplete data (with reconstruction) and exact mode stay eager
     Y = bars_data(10, 4096, seed=2)
     Y_missing = np.where(np.random.default_rng(3).random(Y.shape) < 0.15, np.nan, Y)
-    for label, Yc, S_c, rec in (("incomplete", Y_missing, 20, True), ("exact", Y, 2**10, False)):
+    for label, Yc, S_c, rec, want_c in (
+            ("incomplete", Y_missing, 20, True, {"em_step.blocks": 2, "merge.kernel_blocks": 2}),
+            ("exact", Y, 2**10, False, {"em_step.blocks": 2})):
         model = BSC(D=Y.shape[1], H=10, device=DEVICE)
         data = make_data(Yc, n_blocks=2, device=DEVICE)
         cfg_c, est = init_states(N=4096, S=S_c, H=10, n_blocks=2, device=DEVICE)
         counts = graph_epochs(model, data, cfg_c, est, model.standard_init(data, seed=1, y_host=Yc),
                               launches, n_epochs=2, rec=rec)[1]
-        if counts != [{"em_step.blocks": 2}] * 2 or model.__dict__.get("_graphs") is not None:
+        if counts != [want_c] * 2 or model.__dict__.get("_graphs") is not None:
             raise AssertionError(f"{label}: the blocks did not run eagerly: {counts}")
         say(f"{label}: eager, as it should be (counters {counts[0]})")
+
+
+# the merge phase's cases: (label, B, S, T, W, Mprime, row dtype, lpjs, byte offset of the rows)
+MERGE_CASES = (
+    ("ebsc block", B, S, N_PARENTS * N_CHILDREN, H, S, torch.int8, "ea", 0),
+    ("ebsc packed", B, S, N_PARENTS * N_CHILDREN, n_bytes_lane(H), S, torch.uint8, "ea", 0),
+    ("es3c inpaint", INPAINT_N, INPAINT_S, INPAINT_PARENTS * INPAINT_CHILDREN, INPAINT_H,
+     INPAINT_S, torch.int8, "ea", 0),
+    ("es3c wide", 62001, 64, 10, 256, 64, torch.int8, "ea", 0),
+    ("mprime < T", B, 20, 10, 32, 3, torch.int8, "ties", 0),
+    ("ties", B, S, 10, H, S, torch.int8, "ties", 0),
+    ("w25", B, 20, 10, 25, 20, torch.int8, "ea", 0),
+    ("w13", B, 20, 10, 13, 4, torch.uint8, "ties", 0),
+    ("w100", B, 20, 10, 100, 20, torch.int8, "ea", 0),
+    ("w50", B, 20, 10, 50, 20, torch.int8, "ea", 0),
+    ("offset", B, S, 10, H, S, torch.int8, "ea", 8),
+    ("past a warp", B, 200, 100, 32, 200, torch.int8, "ea", 0),
+    ("past a warp, ties", 512, 200, 300, 32, 150, torch.int8, "levels", 0),
+    ("cap", 256, 1000, 24, 16, 1000, torch.int8, "ties", 0),
+    ("cap mprime", 256, 24, 1000, 16, 7, torch.int8, "ea", 0),
+    ("no children", B, 16, 0, 32, 16, torch.int8, "ea", 0),
+)
+
+
+def merge_inputs(Bm, Sm, T, W, dtype, kind, offset, gen):
+    """(ss, lpj, children, child_lpj) drawn on the card from ``gen``:
+    random rows (the states ``offset`` bytes into a larger buffer), lpjs
+    as the EA leaves them (``ea``: about -1000, a fifth of the children
+    -inf duplicates, a tenth equal to an old state's lpj) or drawn from a
+    few levels (``ties``: -inf, -0.0, +0.0, NaN and repeated values;
+    ``levels`` the same without NaN)."""
+    n = Sm + T
+
+    def rows(count):
+        return torch.randint(-128, 128, (count,), generator=gen, dtype=torch.int8,
+                             device=DEVICE).view(dtype)
+
+    ss = rows(Bm * Sm * W + offset)[offset:].view(Bm, Sm, W)
+    children = rows(Bm * T * W).view(Bm, T, W)
+    if kind == "ea":
+        lpjs = torch.randn((Bm, n), generator=gen, device=DEVICE) * 50.0 - 1000.0
+        u = torch.rand((Bm, T), generator=gen, device=DEVICE)
+        old = lpjs[:, torch.randint(0, Sm, (T,), generator=gen, device=DEVICE)]
+        lpjs[:, Sm:] = torch.where(u < 0.2, -float("inf"), torch.where(u < 0.3, old, lpjs[:, Sm:]))
+    else:
+        levels = torch.tensor([-float("inf"), -float("inf"), -3.5, -0.0, 0.0, 0.0, 1.25, 1.25,
+                               float("nan")][:None if kind == "ties" else -1], device=DEVICE)
+        lpjs = levels[torch.randint(len(levels), (Bm, n), generator=gen, device=DEVICE)]
+    return ss, lpjs[:, :Sm].contiguous(), children, lpjs[:, Sm:].contiguous()
+
+
+def merge_phase(launches):
+    """The merge kernel against its plain twin on the card, bit for bit
+    (lpjs as their bits, so that -0.0 and NaN count), relaunched bit for
+    bit, at MERGE_CASES; each timed per call and from a CUDA graph beside
+    its bytes bound (the kept rows read and written, the lpjs, vals, idx
+    and n_sub) and the plain twin's time; then the cell's graphed EBSC
+    epochs (epoch_graph's shapes) with the kernel against the same epochs
+    with ``vary_Kn`` sent to the plain twin, bit for bit."""
+    gen = torch.Generator(device=DEVICE).manual_seed(25)
+    varykn_merge.launches = 0
+    for label, Bm, Sm, T, W, Mprime, dtype, kind, offset in MERGE_CASES:
+        args = (*merge_inputs(Bm, Sm, T, W, dtype, kind, offset, gen), Mprime)
+        got, again, want = varykn_merge(*args), varykn_merge(*args), vary_Kn_plain(*args)
+        for name, g, a, w in zip(("K", "lpj", "n_sub", "idx"), got, again, want):
+            if g.dtype == torch.float32:
+                g, a, w = (x.view(torch.int32) for x in (g, a, w))
+            if not (torch.equal(g, w) and torch.equal(a, g)):
+                raise AssertionError(f"merge {label}: {name} differs from the plain twin's "
+                                     f"({int((g != w).sum())} entries) or between launches")
+        ptr = args[0].data_ptr() | (args[2].data_ptr() if T else 0) | W
+        word = next(v for v in (16, 8, 4, 2, 1) if ptr % v == 0)
+        nbytes = Bm * (2 * Sm * W + 4 * (Sm + T) + 4 * Sm + 8 * Sm + 8)
+        bound = bound_ms(0, 0, nbytes)[0]
+        ms, dev_ms = cuda_ms(lambda: varykn_merge(*args)), graph_ms(lambda: varykn_merge(*args))
+        plain_ms = cuda_ms(lambda: vary_Kn_plain(*args))
+        say(f"merge {label}: B={Bm} S={Sm} T={T} W={W} Mprime={Mprime} {str(dtype)[6:]}, "
+            f"{word}-byte words: bit for bit; ms {ms:.4f} [{dev_ms:.4f}], bound {bound:.4f} "
+            f"({nbytes / 1e6:.1f} MB), plain {plain_ms:.4f}; children kept "
+            f"{float(got[2].double().mean()):.3f} a datapoint")
+        del args, got, again, want
+    say(f"merge: {varykn_merge.launches} launches; on {CARD['smi']}")
+    # the cell's graphed EBSC epochs with the kernel against the same epochs with the plain twin
+    cfg, estate = init_states(N=GRAPH_BLOCKS * B, S=S, H=H, no_parents=N_PARENTS,
+                              no_children=N_CHILDREN, no_generations=N_GENERATIONS,
+                              n_blocks=GRAPH_BLOCKS, seed=0, device=DEVICE)
+    _, data, params = graph_problem(GRAPH_BLOCKS * B)
+    runs = {}
+    for path in ("kernel", "plain"):
+        plain = mock.patch.object(varykn, "fits", lambda *a: False)
+        with plain if path == "plain" else contextlib.nullcontext():
+            runs[path] = graph_epochs(BSC(D=D, H=H, device=DEVICE), data, cfg, estate, params,
+                                      launches)
+    same_epochs("merge: kernel against plain twin", runs["kernel"][0], runs["plain"][0])
+    merges = (runs["kernel"][2]["merge"], runs["plain"][2]["merge"])
+    if merges != (GRAPH_BLOCKS * GRAPH_EPOCHS, 0):
+        raise AssertionError(f"merge: kernel launches {merges}, expected one a block and none")
+    say(f"merge: {GRAPH_EPOCHS} graphed EBSC epochs of {GRAPH_BLOCKS} blocks x {B} rows with the "
+        f"kernel bit for bit those with the plain twin (K, lpj, Theta, stats); host ms per epoch "
+        f"until the card finished: kernel {[round(m, 2) for m in runs['kernel'][4]]}, plain "
+        f"{[round(m, 2) for m in runs['plain'][4]]}")
 
 
 def compat(launches):
@@ -2817,6 +2943,8 @@ def main(argv=()):
         add_counts(apps, compat(launches))
     with Phase("epoch_graph"):
         epoch_graph(launches)
+    with Phase("merge"):
+        merge_phase(launches)
 
     add_counts(apps, par)  # the workers' launches
     add_counts(apps, par_apps)
@@ -2875,7 +3003,7 @@ def suffstat_phase(launches):
     check_suffstat_densities(DEVICE, torch.Generator().manual_seed(5))
 
 
-STANDALONE = {"epoch_graph": epoch_graph, "suffstat": suffstat_phase}
+STANDALONE = {"epoch_graph": epoch_graph, "suffstat": suffstat_phase, "merge": merge_phase}
 
 if __name__ == "__main__":
     sys.exit(main(sys.argv[1:]))

@@ -230,8 +230,9 @@ class BSC(EMModel):
     # The math of the runner's phases (``models/epoch.py``).
 
     # the kernels' launch counters, which a replayed block advances as an eager one does
-    LAUNCH_COUNTERS = ((bsc_lpj, "launches"), (bsc_lpj, "packed_launches"),
-                       (bsc_suffstat, "launches"), (bsc_suffstat, "packed_launches"))
+    LAUNCH_COUNTERS = EMModel.LAUNCH_COUNTERS + (
+        (bsc_lpj, "launches"), (bsc_lpj, "packed_launches"),
+        (bsc_suffstat, "launches"), (bsc_suffstat, "packed_launches"))
 
     @staticmethod
     def _theta(params: BSCParams, pre: dict) -> dict:

@@ -12,7 +12,8 @@ block's stored states as the phases work on them and back;
 ``_sum_shapes()`` and ``_suffstat_phase(io, acc, cfg)``, its M-step sums
 (plus F into ``acc.Fsum`` and the stored lpj ``io.lpj_full``);
 ``_m_step_finalize`` -> (params, the guard fields of ``StepStats`` it
-sets); ``_graphable(data)`` and ``LAUNCH_COUNTERS`` for the graphs.
+sets); ``_graphable(data)`` and ``LAUNCH_COUNTERS`` for the graphs (its
+kernels' counters after the runner's own, the merge kernel's).
 
 A block's phases read and write the namespace ``io`` (its inputs, Theta
 and what each phase leaves for the next) under the spans ``em_step.lpj``
@@ -45,6 +46,7 @@ from evo_tpu_torch.models.base import (
     total_free_energy,
 )
 from evo_tpu_torch.ops.numerics import shifted_logsumexp
+from evo_tpu_torch.ops.varykn_merge import varykn_merge
 from evo_tpu_torch.parallel import distributed
 from evo_tpu_torch.utils import tracing
 from evo_tpu_torch.variational.config import EAConfig
@@ -60,7 +62,9 @@ class EMModel:
     """``em_step``, ``free_energy`` and ``exact_free_energy`` from the
     model's members listed in the module docstring."""
 
-    LAUNCH_COUNTERS = ()
+    # the launch counters of the runner's kernels, which a replayed block
+    # advances as an eager one does; a model adds its own after them
+    LAUNCH_COUNTERS = ((varykn_merge, "launches"),)
 
     def _states_in(self, ss, cfg: EAConfig):
         return ss
@@ -201,8 +205,10 @@ class EMModel:
         all_reduce after the blocks.  Graphs are captured in the first
         graphed epoch and kept on the model for these shapes, dtypes,
         ``cfg`` and ranks.  The counters ``em_step.blocks``,
-        ``em_step.graph_blocks`` (blocks replayed) and
-        ``em_step.graph_captures`` go to the innermost open tracing span."""
+        ``em_step.graph_blocks`` (blocks replayed),
+        ``em_step.graph_captures`` and, in an EA epoch, ``merge.kernel_blocks``
+        (the merge kernel's launches, one a block that it merged) go to the
+        innermost open tracing span."""
         check_em_step(data, do_reconstruction)
         params = self.check_params(params)
         pre = self._precompute(params, data)
@@ -227,6 +233,7 @@ class EMModel:
         y_rec_all = torch.empty_like(data.y) if do_reconstruction else None
         phases = self._phases(io, acc, cfg, gen, rows)
         replayed = captures = 0
+        merges = varykn_merge.launches
         for i in range(data.n_blocks):
             run = functools.partial(self._run_block, i, phases, io, data, estate, ss_all,
                                     lpj_all, y_rec_all, graphs)
@@ -245,6 +252,8 @@ class EMModel:
             tracing.count("em_step.graph_blocks", replayed)
         if captures:
             tracing.count("em_step.graph_captures", captures)
+        if not cfg.exact:
+            tracing.count("merge.kernel_blocks", varykn_merge.launches - merges)
 
         with tracing.span("em_step.mstep", dev):
             acc = vars(acc)

@@ -55,6 +55,8 @@ SIGNATURES = {
     # H, G, stream
     "evo_sssc_suffstat_masked": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                  _P],
+    # ss, lpj, children, child_lpj, ss_new, vals, n_sub, idx, B, S, T, W, Mprime, stream
+    "evo_varykn_merge": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 

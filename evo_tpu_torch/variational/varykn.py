@@ -7,49 +7,36 @@ over datapoints.  The rows may be int8 states or lane-major packed uint8
 states (ops.bitpack): the merges only move rows.  evo_tpu leans on
 ``lax.top_k`` preferring lower indices on ties, so that an old state wins a
 tie against a child; a stable descending sort gives the same order.
+``_prune_to_mprime`` and ``vary_Kn``'s plain form live beside its CUDA
+kernel in ops/varykn_merge.py.
 """
 
 from __future__ import annotations
 
 import torch
 
+from evo_tpu_torch.ops.varykn_merge import (
+    _prune_to_mprime,
+    _rows,
+    fits,
+    vary_Kn_plain,
+    varykn_merge,
+)
 from evo_tpu_torch.variational.config import EAConfig
 from evo_tpu_torch.variational.selection import stable_topk_idx
-
-
-def _prune_to_mprime(child_lpj: torch.Tensor, Mprime: int) -> torch.Tensor:
-    """[B, T] -> [B, T]: all but the Mprime best children of each row masked
-    to -inf.  Every child strictly better than the Mprime-th value stays;
-    ties at that value are kept in index order up to Mprime in all."""
-    T = child_lpj.shape[-1]
-    if Mprime >= T:
-        return child_lpj
-    kth = torch.sort(child_lpj, dim=-1, descending=True)[0][..., Mprime - 1:Mprime]
-    greater = child_lpj > kth
-    n_greater = greater.sum(dim=-1, keepdim=True)
-    tie = child_lpj == kth
-    tie_rank = torch.cumsum(tie.to(torch.int64), dim=-1)  # 1-based among ties
-    keep = greater | (tie & (tie_rank <= Mprime - n_greater))
-    return torch.where(keep, child_lpj, float("-inf"))
-
-
-def _rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """x [B, K, W] gathered at idx [B, M] -> [B, M, W]."""
-    return torch.gather(x, 1, idx[..., None].expand(-1, -1, x.shape[-1]))
 
 
 def vary_Kn(ss: torch.Tensor, lpj: torch.Tensor, children: torch.Tensor,
             child_lpj: torch.Tensor, Mprime: int):
     """ss [B, S, W], lpj [B, S], children [B, T, W], child_lpj [B, T] with
     -inf at duplicates.  Returns (ss_new [B, S, W], lpj_new [B, S],
-    n_sub [B], idx [B, S]); idx points into concat(old, children)."""
-    S = lpj.shape[-1]
-    child_lpj = _prune_to_mprime(child_lpj, Mprime)
-    combined = torch.cat([lpj, child_lpj], dim=-1)
-    idx = stable_topk_idx(combined, S)
-    vals = torch.gather(combined, -1, idx)
-    ss_new = _rows(torch.cat([ss, children.to(ss.dtype)], dim=1), idx)
-    return ss_new, vals, (idx >= S).sum(dim=-1), idx
+    n_sub [B], idx [B, S]); idx points into concat(old, children).  On CUDA
+    tensors inside the kernel's envelope (``ops.varykn_merge.fits``) one
+    launch of csrc/varykn_merge.cu computes it, elsewhere its plain twin
+    ``vary_Kn_plain``: the same results bit for bit."""
+    if ss.device.type == "cuda" and fits(ss, lpj, children, child_lpj):
+        return varykn_merge(ss, lpj, children, child_lpj, Mprime)
+    return vary_Kn_plain(ss, lpj, children, child_lpj, Mprime)
 
 
 def vary_Kn_swap(ss: torch.Tensor, lpj: torch.Tensor, children: torch.Tensor,

@@ -7,7 +7,8 @@ accumulators and generator against the eager path bit for bit (the
 capture stood in for by the phase functions themselves: the card's
 ``chip_smoke.py epoch_graph`` checks the real graphs), the launch counters
 of replays, the counters on the open span, and the benchmark's readers of
-``em_step.graph_share`` and ``suffstat.sparse_share``."""
+``em_step.graph_share``, ``suffstat.sparse_share`` and
+``merge.kernel_share``."""
 
 import dataclasses
 import os
@@ -277,9 +278,10 @@ def test_graphed_epochs_equal_eager_epochs(case, graphs_on_cpu, tmp_path, monkey
     eager = _epochs(BSC(D=D, H=H, device="cpu"), data, cfg, estate, params)
     _assert_same(graphed, eager)
     # one capture, in the first epoch, whose first block ran eagerly
+    # the merges ran as the plain twin on the CPU: no merge kernel's block
     assert counts == [{"em_step.blocks": NB, "em_step.graph_blocks": NB - 1,
-                       "em_step.graph_captures": 1}] + [
-        {"em_step.blocks": NB, "em_step.graph_blocks": NB}] * 2
+                       "em_step.graph_captures": 1, "merge.kernel_blocks": 0}] + [
+        {"em_step.blocks": NB, "em_step.graph_blocks": NB, "merge.kernel_blocks": 0}] * 2
     # the stats hold copies: the static accumulators are zeroed next epoch
     static = {t.untyped_storage().data_ptr() for t in vars(model._graphs.acc).values()}
     stats = graphed[-1]["stats"]
@@ -330,11 +332,13 @@ def test_counters_land_on_the_open_span_and_nowhere_without_a_session(tmp_path):
     tracing.close(archive=None)
     recs = tracing.records()
     (step,) = [s for s in recs.spans if s.name == "em_step"]
-    assert step.counts == {"em_step.blocks": NB}  # eager on the CPU: nothing replayed
+    # eager on the CPU: nothing replayed, the merges the plain twin's
+    assert step.counts == {"em_step.blocks": NB, "merge.kernel_blocks": 0}
     n = len(recs.spans)
     model.em_step(params, estate, data, gen, cfg)
     assert tracing.records() is recs and len(recs.spans) == n
-    assert [s.counts for s in recs.spans if s.counts] == [{"em_step.blocks": NB}]
+    assert [s.counts for s in recs.spans if s.counts] == [
+        {"em_step.blocks": NB, "merge.kernel_blocks": 0}]
 
 
 # ---------------------------------------------------------------- the reader
@@ -373,4 +377,18 @@ def test_graph_share_reads_the_window(window, want):
 def test_sparse_share_reads_the_window(window, want):
     read = spec.reader("suffstat.sparse_share")
     outside = [{"suffstat.sparse_rows": 0, "suffstat.dense_rows": 9}] * 2
+    assert read(SimpleNamespace(records=_records(window, outside), epochs=len(window))) == want
+
+
+@pytest.mark.parametrize("window,want", [
+    ([{"em_step.blocks": 25, "merge.kernel_blocks": 25}] * 3, 100.0),
+    ([{"em_step.blocks": 25, "em_step.graph_blocks": 24, "merge.kernel_blocks": 25},
+      {"em_step.blocks": 25, "merge.kernel_blocks": 15}], 80.0),
+    ([{"em_step.blocks": 1, "merge.kernel_blocks": 0}] * 2, 0.0),  # the plain twin's merges
+    ([{"em_step.blocks": 25}] * 2, None),  # a program without the counter
+    ([{"ea.children": 10}] * 2, None),
+])
+def test_merge_kernel_share_reads_the_window(window, want):
+    read = spec.reader("merge.kernel_share")
+    outside = [{"em_step.blocks": 25, "merge.kernel_blocks": 0}] * 2
     assert read(SimpleNamespace(records=_records(window, outside), epochs=len(window))) == want
