@@ -13,7 +13,9 @@ block's stored states as the phases work on them and back;
 (plus F into ``acc.Fsum`` and the stored lpj ``io.lpj_full``);
 ``_m_step_finalize`` -> (params, the guard fields of ``StepStats`` it
 sets); ``_graphable(data)`` and ``LAUNCH_COUNTERS`` for the graphs (its
-kernels' counters after the runner's own, the merge kernel's).
+kernels' counters after the runner's own, the merge kernel's).  It may
+replace ``_gram(io)``, the block's ``block_gram``, to put the model's own
+span and counters around it.
 
 A block's phases read and write the namespace ``io`` (its inputs, Theta
 and what each phase leaves for the next) under the spans ``em_step.lpj``
@@ -74,11 +76,15 @@ class EMModel:
 
     # ---------------------------------------------------------------- phases
 
+    def _gram(self, io):
+        """(G, Wty, y2) of the block: ``block_gram``."""
+        return block_gram(io.W, io.y, io.x_infr, io.incomplete)
+
     def _lpj_phase(self, io, cfg: EAConfig):
-        """``block_gram``, the block's states as the phases work on them
+        """``_gram``, the block's states as the phases work on them
         (``io.K``) and their lpj; in exact mode also the E-step's results
         (K^(n) kept, nothing new)."""
-        io.G, io.Wty, io.y2 = block_gram(io.W, io.y, io.x_infr, io.incomplete)
+        io.G, io.Wty, io.y2 = self._gram(io)
         io.K = self._states_in(io.ss, cfg)
         io.lpj_K, io.keys_K, io.counts = self._lpj(io, cfg, io.K)
         if cfg.exact:

@@ -42,7 +42,9 @@ take the wide path, the counterpart of evo_tpu's XLA path
 evo_tpu/models/sssc.py:266-329, 509-539): plain PyTorch at model level,
 ``sssc_lpj_wide`` for the lpj and ``sssc_suffstat_wide`` for the
 statistics, which solve each state's |s| x |s| system by a batched LU
-factorization (see ``wide_solves``).  The path is chosen from H
+factorization (see ``wide_solves``); on incomplete data each state is
+solved under its own datapoint's G_n, whose build is the span
+``wide.gram`` (``_gram``).  The path is chosen from H
 and ``data.incomplete`` alone (``SSSC.wide``), before anything is
 launched, the same way on every device, as evo_tpu's
 ``pallas_sssc_applicable`` chooses; the limits are read when the model is
@@ -355,6 +357,20 @@ class SSSC(EMModel):
     def _theta(params: SSSCParams, pre: dict) -> dict:
         return dict(W=params.W, Psi=params.Psi, mus=params.mus, pil_bar=pre["pil_bar"],
                     sigma2_inv=pre["sigma2_inv"], piH=pre["piH"])
+
+    def _gram(self, io):
+        """``block_gram``; where it builds G_n for the wide path (incomplete
+        data above ``MASKED_MAX_H``) it is the span ``wide.gram``, nested in
+        ``em_step.lpj``, with the counters ``wide.gram_rows`` (the block's
+        datapoints, B) and ``wide.gram_cells`` (the data entries read, B D),
+        from host shapes."""
+        if not (io.incomplete and self.wide(io)):
+            return super()._gram(io)
+        B, D = io.y.shape
+        with tracing.span("wide.gram", io.dev):
+            tracing.count("wide.gram_rows", B)
+            tracing.count("wide.gram_cells", B * D)
+            return super()._gram(io)
 
     def _lpj(self, io, cfg: EAConfig, states):
         """(lpj [B, K], None, reset counts [3]) of states [B, K, H] int8
