@@ -1000,6 +1000,35 @@ def check_masked_lpj(args, label):
     return err.max().item(), int(flagged.sum())
 
 
+# In es3c_p5h32.inpaint's K^(n) after its 51 s window: the rows' active-unit
+# counts n = 0, 1, ..., 11 (every row had r != 0), and the datapoints'
+# unions of units u (count by u)
+TRAINED_N = (2650, 133213, 908619, 1094651, 676563, 186021, 17207, 4291, 793, 148, 23, 1)
+TRAINED_U = {5: 115854, 6: 7068, 7: 6999, 8: 5313, 9: 14047, 10: 1486, 11: 348, 12: 91,
+             13: 1, 14: 1, 15: 1}
+
+
+def trained_states(Bk, K, Hk, gen, device):
+    """int8 states [Bk, K, Hk] shaped as the inpainting cell's trained
+    K^(n): each row's n drawn from TRAINED_N and each datapoint's union u
+    from TRAINED_U (widened to its largest n), each state n units of its
+    datapoint's union, so that rows past SPARSE_N come at about the cell's
+    share (5.7e-5)."""
+    pn = torch.tensor(TRAINED_N, dtype=torch.float64)
+    n = torch.multinomial(pn / pn.sum(), Bk * K, replacement=True, generator=gen).view(Bk, K)
+    us = torch.tensor(list(TRAINED_U))
+    pu = torch.tensor(list(TRAINED_U.values()), dtype=torch.float64)
+    u = us[torch.multinomial(pu / pu.sum(), Bk, replacement=True, generator=gen)]
+    u = torch.maximum(u, n.max(1).values)
+    order = torch.rand(Bk, Hk, generator=gen).argsort(-1).to(device)  # the union: order[:, :u]
+    key = torch.rand(Bk, K, Hk, generator=gen).to(device)
+    inside = torch.arange(Hk, device=device) < u.to(device)[:, None, None]
+    rank = torch.where(inside, key, 2.0).argsort(-1).argsort(-1)
+    take = (rank < n.to(device)[..., None]).to(torch.int8)
+    ss = torch.zeros(Bk, K, Hk, dtype=torch.int8, device=device)
+    return ss.scatter_(2, order[:, None, :].expand(Bk, K, Hk), take)
+
+
 def check_masked_kernels(device, gen):
     """Both masked ES3C kernels against their plain versions on the card:
     at (B, K, H) = (4096, 20, 32), (4096, 10, 32) and (2048, 8, 64) with
@@ -1056,6 +1085,23 @@ def check_masked_kernels(device, gen):
             rows["sssc_suffstat_masked"] = dict(max_abs_err=max(abs_err, pabs), ms=ms,
                                                 device_ms=dev_ms, plain_ms=plain, bound_ms=bnd,
                                                 bound_by=by)
+            # the same block with the states shaped as training leaves them
+            ss_args["ss"] = trained_states(Bk, K, Hk, gen, device)
+            n = ss_args["ss"].sum(-1)
+            if not bool((n > SPARSE_N).any()):
+                raise AssertionError("trained_states drew no row past SPARSE_N")
+            rel, abs_err = suffstat_errors(ss_args, label + " trained")
+            ms = cuda_ms(lambda: sssc_suffstat_masked(**ss_args))
+            dev_ms = graph_ms(lambda: sssc_suffstat_masked(**ss_args))
+            bnd, by, gbytes = masked_suffstat_bound(ss_args["ss"])
+            say(f"sssc_suffstat_masked {label} trained (|s| mean "
+                f"{n.double().mean().item():.3f}, {int((n > SPARSE_N).sum())} rows past "
+                f"SPARSE_N): max err / max value {max(rel):.3g} (max_abs_err {abs_err:.3g}); "
+                f"{ms:.4f} ms (device {dev_ms:.4f} ms), bound {bnd:.4f} ms ({by}; G_n read "
+                f"{gbytes / 1e6:.3f} MB)")
+            rows["sssc_suffstat_masked_trained"] = dict(max_abs_err=abs_err, ms=ms,
+                                                        device_ms=dev_ms, bound_ms=bnd,
+                                                        bound_by=by)
     return rows
 
 
@@ -3003,7 +3049,17 @@ def suffstat_phase(launches):
     check_suffstat_densities(DEVICE, torch.Generator().manual_seed(5))
 
 
-STANDALONE = {"epoch_graph": epoch_graph, "suffstat": suffstat_phase, "merge": merge_phase}
+def sssc_phase(launches):
+    """The ES3C kernels' checks and timings of the kernels phase (rows 5-8,
+    the masked suffstat on trained states, the suffstat's edges, with the
+    same seeds), alone."""
+    check_sssc_kernels(DEVICE, torch.Generator().manual_seed(1))
+    check_masked_kernels(DEVICE, torch.Generator().manual_seed(2))
+    check_sssc_suffstat_edges(DEVICE, torch.Generator().manual_seed(6))
+
+
+STANDALONE = {"epoch_graph": epoch_graph, "suffstat": suffstat_phase, "merge": merge_phase,
+              "sssc": sssc_phase}
 
 if __name__ == "__main__":
     sys.exit(main(sys.argv[1:]))

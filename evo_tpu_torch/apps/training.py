@@ -13,9 +13,10 @@ Observability:
     of an epoch (em_step or em_steps, stats_wait inside it, log,
     epoch_callback, checkpoint) and the models' em_step.* phases, each
     epoch's EA counters (ea.children, ea.unique) and, where bsc_suffstat
-    ran, its row counters (suffstat.sparse_rows, suffstat.dense_rows) on
-    em_step, and resolves the phases' device times after each stats
-    transfer.
+    ran, its row counters (suffstat.sparse_rows, suffstat.dense_rows), and
+    where the ES3C suffstat kernels ran, theirs (sssc_suffstat.sparse_rows,
+    sssc_suffstat.dense_rows) on em_step, and resolves the phases' device
+    times after each stats transfer.
   - device_trace_every=N records one epoch in every N with torch.profiler
     into <outdir>/device_trace (a Chrome trace).
 Each epoch's (or chunk's) statistics reach the host in one transfer.
@@ -36,6 +37,7 @@ import torch
 from evo_tpu_torch.apps.common import merge_dict, params_to_dict, to_host
 from evo_tpu_torch.models.base import StepStats, em_steps, epoch_generator
 from evo_tpu_torch.models.sssc import SSSC
+from evo_tpu_torch.ops import sssc_suffstat
 from evo_tpu_torch.ops.bsc_suffstat import row_counts
 from evo_tpu_torch.ops.sssc_lpj import overflow_cap
 from evo_tpu_torch.parallel import distributed
@@ -99,8 +101,11 @@ class EMTrainer:
         the stats) times those rows; while spans are recorded, also
         ``suffstat.sparse_rows`` and ``suffstat.dense_rows``, the rows
         that ``bsc_suffstat`` summed sparsely and densely since the last
-        such read (none where it has not run: ES3C), a transfer after the
-        stats' own."""
+        such read (none where it has not run: ES3C), and
+        ``sssc_suffstat.sparse_rows`` and ``sssc_suffstat.dense_rows``, the
+        rows that the ES3C suffstat kernels solved by a lane and by a warp
+        (none where they have not run: EBSC, the wide path), each a
+        transfer after the stats' own."""
         with tracing.span("stats_wait"):
             stats = stats_to_host(stats)
         tracing.resolve()
@@ -109,6 +114,10 @@ class EMTrainer:
             if summed is not None:
                 tracing.count("suffstat.sparse_rows", summed[0])
                 tracing.count("suffstat.dense_rows", summed[1])
+            solved = sssc_suffstat.row_counts(self.data.y.device)
+            if solved is not None:
+                tracing.count("sssc_suffstat.sparse_rows", solved[0])
+                tracing.count("sssc_suffstat.dense_rows", solved[1])
         if self.cfg.n_new:
             rows = self.data.row_valid.numel()
             s_nunique = np.atleast_1d(stats.S_nunique)

@@ -35,6 +35,15 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src));
 }
 
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait for all but the most recent group of copies
+__device__ __forceinline__ void cp_async_wait_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
 }
@@ -108,24 +117,25 @@ __device__ float gauss_jordan_cols(float* A, int n, int lane) {
 }
 
 // One row of a warp's register columns (lane j holds c[i] = A[i][j]) in:
-// rows 1 .. 31 move up by one and x becomes row 31, so 32 pushes fill c
-// in order.
-__device__ __forceinline__ void push_row(float (&c)[32], float x) {
+// rows 1 .. R - 1 move up by one and x becomes row R - 1, so R pushes fill
+// c in order.
+template <int R>
+__device__ __forceinline__ void push_row(float (&c)[R], float x) {
 #pragma unroll
-  for (int i = 0; i < 31; ++i) c[i] = c[i + 1];
-  c[31] = x;
+  for (int i = 0; i < R - 1; ++i) c[i] = c[i + 1];
+  c[R - 1] = x;
 }
 
-// The inverse of A, n <= 32, by a warp in registers: lane j holds column j
-// (c[i] = A[i][j]), A is the identity past n, and column k's entries come
-// from lane k by shuffles.  Each step runs over all 32 rows with no test of
-// n (past n a row adds nothing to the leading n x n block), so that block
-// ends as gauss_jordan_regs leaves it.  The rows move up by one after each
-// step, so the pivot row is always c[0]; after the n steps 32 - n more
-// moves bring them back to their order.  With LD every lane returns
-// log|det A|.
-template <bool LD = false>
-__device__ __forceinline__ float gauss_jordan_warp(float (&c)[32], int n, int lane) {
+// The inverse of A, n <= R <= 32, by a warp in registers: lane j holds
+// column j (c[i] = A[i][j], lanes R and up a column of their own), A is the
+// identity past n, and column k's entries come from lane k by shuffles.
+// Each step runs over all R rows with no test of n (past n a row adds
+// nothing to the leading n x n block), so that block ends as
+// gauss_jordan_regs leaves it.  The rows move up by one after each step, so
+// the pivot row is always c[0]; after the n steps R - n more moves bring
+// them back to their order.  With LD every lane returns log|det A|.
+template <bool LD = false, int R>
+__device__ __forceinline__ float gauss_jordan_warp(float (&c)[R], int n, int lane) {
   float ld = 0.f;
 #pragma unroll 1
   for (int k = 0; k < n; ++k) {
@@ -134,15 +144,15 @@ __device__ __forceinline__ float gauss_jordan_warp(float (&c)[32], int n, int la
     if (LD) ld += logf(fabsf(piv));
     const float r = c[0] * ip;  // this lane's entry of the scaled row k
     const bool mine = lane == k;
-    float a[32];  // column k
+    float a[R];  // column k
 #pragma unroll
-    for (int i = 1; i < 32; ++i) a[i] = __shfl_sync(FULL, c[i], k);
+    for (int i = 1; i < R; ++i) a[i] = __shfl_sync(FULL, c[i], k);
 #pragma unroll
-    for (int i = 1; i < 32; ++i) c[i] = mine ? c[i] * -ip : c[i] - a[i] * r;
+    for (int i = 1; i < R; ++i) c[i] = mine ? c[i] * -ip : c[i] - a[i] * r;
     push_row(c, mine ? ip : r);
   }
 #pragma unroll 1
-  for (int k = n; k < 32; ++k) push_row(c, c[0]);
+  for (int k = n; k < R; ++k) push_row(c, c[0]);
   return ld;
 }
 

@@ -44,17 +44,17 @@ SIGNATURES = {
     # B, S, H, cap -> the number of blocks G of the call below
     "evo_sssc_suffstat_blocks": [_I, _I, _I, _I],
     # ss, rs, wty, G, Psi, mus, s2inv, xpt_sz, xpt_s, out, partial [G, 3 H(H+1)/2 + H^2],
-    # B, S, H, cap, G, stream
-    "evo_sssc_suffstat": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                          _P],
+    # counts [2] or null, B, S, H, cap, G, stream
+    "evo_sssc_suffstat": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                          _I, _P],
     # ss, wty, y2, G [B, H, H], Psi, mus, pil_bar, s2inv, lpj, bad, B, K, H, stream
     "evo_sssc_lpj_masked": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     # B, S, H -> the number of blocks G of the call below
     "evo_sssc_suffstat_masked_blocks": [_I, _I, _I],
-    # ss, rs, wty, G [B, H, H], Psi, mus, s2inv, xpt_sz, xpt_s, out, partial, B, S,
-    # H, G, stream
-    "evo_sssc_suffstat_masked": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                 _P],
+    # ss, rs, wty, G [B, H, H], Psi, mus, s2inv, xpt_sz, xpt_s, out, partial,
+    # counts [2] or null, B, S, H, G, stream
+    "evo_sssc_suffstat_masked": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                 _I, _P],
     # ss, lpj, children, child_lpj, ss_new, vals, n_sub, idx, B, S, T, W, Mprime, stream
     "evo_varykn_merge": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }

@@ -30,7 +30,14 @@ tensor and the plain version ``sssc_suffstat_plain`` (which takes either
 Gram) on a CPU tensor; nothing falls back from one to the other.  The
 kernels solve a state with up to ``SPARSE_N`` active units in one thread's
 registers and a denser one in a warp, and sum every output in an order
-fixed by the data (no float atomics), so they are the same from run to run.
+fixed by the data and the grid (no float atomics), so they are the same
+from run to run.  Up to H = 64 a warp takes whole datapoints.
+
+While spans are recorded (``utils.tracing.active()``) the kernels also
+count, by integer atomics into a buffer of two int64 per device that this
+module owns, the rows with r != 0 they solved at H <= 64: a lane each
+(n <= ``SPARSE_N``) and a warp each.  ``row_counts`` reads and clears
+them; an untraced launch passes no buffer and counts nothing.
 """
 
 from __future__ import annotations
@@ -52,6 +59,7 @@ from evo_tpu_torch.ops.sssc_lpj import (
     gram_sub,
     overflow_cap,
 )
+from evo_tpu_torch.utils import tracing
 
 
 def _finite(x: torch.Tensor) -> torch.Tensor:
@@ -137,6 +145,37 @@ def sssc_suffstat_masked(ss, rs, Wty, G, Psi, mus, s2inv):
 sssc_suffstat_masked.launches = 0
 
 
+_rows = {}  # device index -> int64 [2] on the card: rows solved by a lane, by a warp
+
+
+def row_counts(device):
+    """(sparse, dense): the rows with r != 0 that the kernels solved by a
+    lane and by a warp on ``device`` in traced launches since the last
+    call (the counters start again from 0), or None where no traced launch
+    has run there."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return None
+    buf = _rows.get(dev.index if dev.index is not None else torch.cuda.current_device())
+    if buf is None:
+        return None
+    sparse, dense = buf.tolist()
+    buf.zero_()
+    return sparse, dense
+
+
+def _rows_buffer(dev):
+    """The device's row counters while spans are recorded, made at the
+    first such launch outside a CUDA graph's capture (a capture would record
+    their zeroing); None otherwise."""
+    if not tracing.active():
+        return None
+    buf = _rows.get(dev.index)
+    if buf is None and not torch.cuda.is_current_stream_capturing():
+        buf = _rows[dev.index] = torch.zeros(2, dtype=torch.int64, device=dev)
+    return buf
+
+
 @functools.cache
 def _n_blocks(entry, device_index, shape):
     """The kernel's number of blocks G for this shape (B, S, H and, without
@@ -166,10 +205,11 @@ def _launch(entry, masked, ss, rs, Wty, G, Psi, mus, s2inv):
     # each block's xpt_ss, xpt_szsz and sz_sz_outer triangles and s_sz_outer
     partial = torch.empty((n_blocks, 3 * (H * (H + 1) // 2) + H * H), dtype=torch.float32,
                           device=dev)
+    rows = _rows_buffer(dev)
     err = _build.entry(entry)(ss.data_ptr(), rs.data_ptr(), Wty.data_ptr(), G.data_ptr(),
                               Psi.data_ptr(), mus.data_ptr(), scal.data_ptr(),
                               xpt_sz.data_ptr(), xpt_s.data_ptr(), out.data_ptr(),
-                              partial.data_ptr(), *shape, n_blocks,
-                              torch.cuda.current_stream(dev).cuda_stream)
+                              partial.data_ptr(), None if rows is None else rows.data_ptr(),
+                              *shape, n_blocks, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, entry)
     return xpt_sz, xpt_s, out[0], out[1], out[2], out[3]

@@ -381,6 +381,20 @@ def test_sparse_share_reads_the_window(window, want):
 
 
 @pytest.mark.parametrize("window,want", [
+    ([{"sssc_suffstat.sparse_rows": 3024008, "sssc_suffstat.dense_rows": 172}] * 2,
+     100.0 * 172 / 3024180),
+    ([{"sssc_suffstat.sparse_rows": 300, "sssc_suffstat.dense_rows": 100},
+      {"sssc_suffstat.sparse_rows": 500, "sssc_suffstat.dense_rows": 100}], 20.0),
+    ([{"sssc_suffstat.sparse_rows": 0, "sssc_suffstat.dense_rows": 0}] * 2, None),  # none solved
+    ([{"suffstat.sparse_rows": 10, "suffstat.dense_rows": 0}] * 2, None),  # EBSC, or the parent
+])
+def test_sssc_dense_share_reads_the_window(window, want):
+    read = spec.reader("sssc_suffstat.dense_share")
+    outside = [{"sssc_suffstat.sparse_rows": 0, "sssc_suffstat.dense_rows": 9}] * 2
+    assert read(SimpleNamespace(records=_records(window, outside), epochs=len(window))) == want
+
+
+@pytest.mark.parametrize("window,want", [
     ([{"em_step.blocks": 25, "merge.kernel_blocks": 25}] * 3, 100.0),
     ([{"em_step.blocks": 25, "em_step.graph_blocks": 24, "merge.kernel_blocks": 25},
       {"em_step.blocks": 25, "merge.kernel_blocks": 15}], 80.0),

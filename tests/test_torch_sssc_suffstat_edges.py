@@ -91,6 +91,31 @@ def _dense_masked():
     return p
 
 
+def _trained(B, S, H, masked, seed):
+    """States shaped as the inpainting cell's trained K^(n): each datapoint's
+    states drawn from a union of 5 to 9 units, |s| mostly 2-4 (1 to 8, and
+    none), and every 7th datapoint one state past the sparse threshold
+    (SPARSE_N + 1 to SPARSE_N + 3 units, its union widened to hold it)."""
+    make = masked_problem if masked else problem
+    p = make(B, S, H, D=11, seed=seed, p=2.0 / H)
+    rng = np.random.default_rng(seed + 100)
+    share = np.array([0.01, 0.04, 0.30, 0.36, 0.22, 0.06, 0.008, 0.0015, 0.0005])
+    ss = p["ss"]
+    ss[:] = 0
+    for b in range(B):
+        dense = SPARSE_N + 1 + (b // 7) % 3 if b % 7 == 0 else 0
+        units = rng.permutation(H)[:max(5 + rng.integers(0, 5), dense)]
+        for k in range(S):
+            n = min(rng.choice(share.size, p=share / share.sum()), units.size)
+            ss[b, k, rng.permutation(units)[:n]] = 1
+        if dense:
+            ss[b, rng.integers(0, S)] = 0
+            ss[b, rng.integers(0, S), units[:dense]] = 1
+    rs = rng.random((B, S)).astype(np.float32)
+    p["rs"] = rs / rs.sum(1, keepdims=True)
+    return p
+
+
 def _port(p):
     args = [torch.from_numpy(np.ascontiguousarray(p[k])) for k in ARGS]
     return [t.numpy() for t in sssc_suffstat(*args, float(p["s2inv"]))]
@@ -160,6 +185,18 @@ def test_plain_suffstat_edges_match_pallas_interpret(case, B, S, H):
 def test_plain_masked_suffstat_dense_datapoint_at_h64_matches_pallas_interpret():
     p = _dense_masked()
     p["s2inv"] = np.float32(0.2)
+    _compare(p)
+
+
+@pytest.mark.parametrize("masked,B,S,H", [(True, 256, 20, 32), (False, 128, 8, 64)],
+                         ids=["masked_h32", "complete_h64"])
+def test_plain_suffstat_trained_states_past_sparse_n_match_pallas_interpret(masked, B, S, H):
+    """States as training leaves them (a few units a datapoint, shared by
+    its states), with rows past SPARSE_N, masked at H = 32 and on complete
+    data at H = 64: the widths at which a warp takes a datapoint."""
+    p = _trained(B, S, H, masked, seed=H + masked)
+    n = p["ss"].sum(-1)
+    assert (n > SPARSE_N).sum() >= B // 7 and (n == 0).any() and n.max() <= SPARSE_N + 3
     _compare(p)
 
 

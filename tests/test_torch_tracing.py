@@ -16,6 +16,7 @@ import torch
 from evo_tpu_torch import BSC, SSSC, init_states, make_data
 from evo_tpu_torch.apps import training
 from evo_tpu_torch.apps.training import EMTrainer
+from evo_tpu_torch.ops import sssc_suffstat
 from evo_tpu_torch.ops.bsc_suffstat import row_counts
 from evo_tpu_torch.utils import tracing
 from evo_tpu_torch.utils.datalog import DataHandler, DataLog
@@ -342,6 +343,33 @@ def test_the_suffstat_row_counters_are_read_only_while_spans_are_recorded(tmp_pa
     steps = [s for s in tracing.records().spans if s.name == "em_step"]
     assert [(s.counts["suffstat.sparse_rows"], s.counts["suffstat.dense_rows"])
             for s in steps] == [(7, 1), (14, 0), (21, 1), (28, 0)]
+
+
+@pytest.mark.parametrize("trace", [True, False], ids=["traced", "untraced"])
+def test_the_sssc_suffstat_row_counters_are_read_only_while_spans_are_recorded(
+        tmp_path, monkeypatch, trace):
+    """As the EBSC counters: the ES3C suffstat kernels' rows solved by a
+    lane and by a warp reach each em_step span of a traced run under their
+    own names, and are never read in an untraced one; on the CPU there is
+    nothing to read, and an untraced launch would get no buffer."""
+    assert sssc_suffstat.row_counts("cpu") is None
+    assert sssc_suffstat._rows_buffer(torch.device("cpu")) is None
+    calls = []
+
+    def counts(device):
+        calls.append(device)
+        return 5 * len(calls), len(calls) % 3
+
+    monkeypatch.setattr(sssc_suffstat, "row_counts", counts)
+    tr, _, _ = _trainer(tmp_path, "sssc", trace=trace)
+    if not trace:
+        assert calls == []
+        return
+    assert calls == [tr.data.y.device] * 4
+    steps = [s for s in tracing.records().spans if s.name == "em_step"]
+    assert [(s.counts["sssc_suffstat.sparse_rows"], s.counts["sssc_suffstat.dense_rows"])
+            for s in steps] == [(5, 1), (10, 2), (15, 0), (20, 1)]
+    assert all("suffstat.sparse_rows" not in s.counts for s in steps)
 
 
 READERS = [f"em_step.{p}_{side}_ms" for side in ("host", "device")
