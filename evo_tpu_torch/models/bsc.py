@@ -37,6 +37,9 @@ per-datapoint Gram G_n = W^T diag(m_n) W and is plain PyTorch on every
 device (``lpj_gram``): evo_tpu has no TPU kernel for it either
 (``pallas_lpj_applicable`` is False for incomplete data), so nothing falls
 back here.  ``bsc_suffstat`` does not read the mask and stays the kernel.
+There the build of G_n is the span ``bsc.gram`` (``_gram``) and each lpj
+under it the span ``bsc.masked_lpj`` (``_masked_lpj``), with counters of
+the rows, states and entries they read; neither opens on complete data.
 
 Widths: the ``bsc_lpj`` kernel covers H <= ``ops.bsc_lpj.MAX_H`` (1024).
 Wider models take evo_tpu's XLA form of the lpj, ``BSC._lpj_one``
@@ -82,6 +85,7 @@ from evo_tpu_torch.ops.numerics import (
     shifted_logsumexp,
 )
 from evo_tpu_torch.parallel import distributed
+from evo_tpu_torch.utils import tracing
 from evo_tpu_torch.variational.config import EAConfig
 
 PARAM_TOL = 1e-5  # reference noise_policy bounds (_models.py:47-52)
@@ -238,16 +242,53 @@ class BSC(EMModel):
     def _theta(params: BSCParams, pre: dict) -> dict:
         return dict(W=params.W, pre1=pre["pre1"], pil_bar=pre["pil_bar"], piH=pre["piH"])
 
+    def _gram(self, io):
+        """``block_gram``; on incomplete data, where it builds each
+        datapoint's G_n, it is the span ``bsc.gram``, nested in
+        ``em_step.lpj``, with the counters ``bsc.gram_rows`` (the block's
+        datapoints, B) and ``bsc.gram_cells`` (the data entries read, B D),
+        from host shapes."""
+        if not io.incomplete:
+            return super()._gram(io)
+        B, D = io.y.shape
+        with tracing.span("bsc.gram", io.dev):
+            tracing.count("bsc.gram_rows", B)
+            tracing.count("bsc.gram_cells", B * D)
+            return super()._gram(io)
+
+    def _masked_lpj(self, io, cfg: EAConfig, states):
+        """``lpj_gram`` of states [B, K, ...] under per-datapoint Grams: the
+        span ``bsc.masked_lpj`` (in the ``em_step.lpj`` of K^(n) or of the
+        children), with the counters ``bsc.masked_lpj_rows`` (B),
+        ``.masked_lpj_states`` (B K), ``.masked_lpj_cells`` (the data
+        entries the states are judged on, B D) and ``.masked_lpj_units``
+        (the state entries read, B K H), from host shapes."""
+        B, K = states.shape[:2]
+        with tracing.span("bsc.masked_lpj", states.device):
+            tracing.count("bsc.masked_lpj_rows", B)
+            tracing.count("bsc.masked_lpj_states", B * K)
+            tracing.count("bsc.masked_lpj_cells", B * self.D)
+            tracing.count("bsc.masked_lpj_units", B * K * self.H)
+            return self._gram_lpj(io, cfg, states)
+
+    def _gram_lpj(self, io, cfg: EAConfig, states):
+        """``lpj_gram`` of states [B, K, ...] under the block's Gram, packed
+        states unpacked first."""
+        if cfg.packed_states:
+            states = unpack_bits_lane(states, self.H).to(torch.int8)
+        return lpj_gram(states, io.Wty, io.y2, io.G, io.pre1, io.pil_bar)
+
     def _lpj(self, io, cfg: EAConfig, states):
         """(lpj [B, K], dedup keys [B, K, W] or None, reset counts [3]) of
         states [B, K, ...] like the block's, under its Gram.  A
-        per-datapoint Gram G [B, H, H] (incomplete data) and a wide model
-        take ``lpj_gram``; the EA computes its own dedup keys then and on
-        packed states (the kernel's keys are those of unpacked states)."""
-        if io.G.dim() == 3 or self.wide():
-            if cfg.packed_states:
-                states = unpack_bits_lane(states, self.H).to(torch.int8)
-            lpj, keys = lpj_gram(states, io.Wty, io.y2, io.G, io.pre1, io.pil_bar), None
+        per-datapoint Gram G [B, H, H] (incomplete data, ``_masked_lpj``)
+        and a wide model take ``lpj_gram``; the EA computes its own dedup
+        keys then and on packed states (the kernel's keys are those of
+        unpacked states)."""
+        if io.G.dim() == 3:
+            lpj, keys = self._masked_lpj(io, cfg, states), None
+        elif self.wide():
+            lpj, keys = self._gram_lpj(io, cfg, states), None
         elif cfg.exact or cfg.packed_states:
             lpj, keys = bsc_lpj(states, io.Wty, io.y2, io.G, io.pre1, io.pil_bar), None
         else:
